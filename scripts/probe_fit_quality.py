@@ -1,5 +1,5 @@
 """Fit-schedule quality study: does a cheaper restart/halving/polish schedule
-reach the same final LMLs? (VERDICT r4 next #2: fit <= 1.5 s.)
+reach the same final LMLs?
 
 CPU x64 (exact arithmetic — schedule effects only, no precision effects), on
 the real fixture at the production fit SHAPE class (N=200 design points,
@@ -11,7 +11,7 @@ over every seed (differences far below emulator-quality relevance; the
 halving-rejected restarts were never going to win).
 
 Cost column: iteration-instances relative to baseline at the PRODUCTION batch
-(R=51 restarts, k=41 PCs) — what the TPU fit phase actually pays.
+(R=51 restarts, k=41 PCs) — what the device fit phase actually pays.
 
 Usage: python scripts/probe_fit_quality.py [n_seeds]   (default 2; ~2 min/seed
 per variant on a quiet host)

@@ -19,7 +19,6 @@ from pathlib import Path
 REPO = Path(__file__).parent.parent
 sys.path.insert(0, str(REPO / "src"))
 
-import h5py
 import numpy as np
 
 # Force host-only work: stats.integrated_time with numpy input stays on host.
@@ -31,9 +30,11 @@ PROD_MAX = np.array([0.5, 10, 10, 10, 1.5, 100])
 path = Path(sys.argv[1]) if len(sys.argv) > 1 else (
     REPO / "output/bench_production/output/bench_exponential/mcmc.h5"
 )
-with h5py.File(path, "r") as f:
-    chain = f["chain"][:]  # (n_steps, W, d)
-    log_prob = f["log_prob"][:] if "log_prob" in f else None
+from bayesian_inference_tpu.io.hdf5 import read_datasets
+
+datasets = read_datasets(str(path.parent), path.name, ["chain", "log_prob"])
+chain = datasets["chain"]  # (n_steps, W, d)
+log_prob = datasets.get("log_prob")
 n, W, d = chain.shape
 print(f"# chain {chain.shape} from {path}", file=sys.stderr)
 

@@ -1,11 +1,11 @@
-"""TPU-native Bayesian inference of QCD transport properties.
+"""Bayesian inference of QCD transport properties in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 jdmulligan/bayesian-inference: design-point table ingest, outlier smoothing,
 PCA reduction, Gaussian-process emulation, affine-invariant ensemble MCMC,
 closure tests, and qhat(E,T) credible intervals -- with the numerical core
 (PCA SVD, GP kernels/Cholesky/LML, MVN likelihood, stretch-move sampler)
-running on-chip.
+running on an NVIDIA GPU, and on the CPU for tests.
 """
 
 __version__ = "0.1.0"
@@ -14,16 +14,15 @@ import os as _os
 
 import jax as _jax
 
-# TPU MXU matmuls default to bfloat16 passes for float32 inputs. For this
-# workload that is catastrophic, not cosmetic: the covariance-block assembly
-# einsums pick up ~1e-3 absolute noise, flipping marginally-positive-definite
-# blocks negative (NaN Cholesky) and roughening the log-posterior surface
-# enough to collapse MCMC acceptance. Force full float32 precision throughout;
-# opt out with BIQ_MATMUL_PRECISION=default if a future workload wants speed
-# over exactness.
-_precision = _os.environ.get("BIQ_MATMUL_PRECISION", "high")
+# Float32 matrix products run at full float32 precision ("float32", the
+# same as "highest"). On a GPU, JAX's default for float32 products is TF32,
+# which keeps a 10-bit mantissa: the GP predictive variance
+# prior_var - k*^T K^-1 k* cancels badly at that precision, and on the H100
+# the block-mode log-posterior of the final walkers then differs from a
+# float64 evaluation by several nats (chip_smoke.py's precision study;
+# PERF.md). Rounding of this class also flips marginally positive-definite
+# covariance blocks negative. BIQ_MATMUL_PRECISION=default restores JAX's
+# default; any other jax_default_matmul_precision value is accepted.
+_precision = _os.environ.get("BIQ_MATMUL_PRECISION", "float32")
 if _precision != "default":
-    # "high" (three bf16 passes) recovers ~float32 accuracy at ~2x the cost of
-    # a single pass — sufficient for positive-definite covariance assembly.
-    # "highest" (six passes) is available for paranoia via the env var.
     _jax.config.update("jax_default_matmul_precision", _precision)

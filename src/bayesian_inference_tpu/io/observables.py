@@ -11,11 +11,11 @@ the reference convention (data_IO.py:509-553) exactly.
 
 from __future__ import annotations
 
+import dataclasses
 import fnmatch
 import logging
 from typing import Any, Mapping, Sequence
 
-import attrs
 import numpy as np
 import numpy.typing as npt
 
@@ -64,7 +64,7 @@ def _matches_any(name: str, patterns: Sequence[str], use_glob: bool) -> bool:
     return any(p in name for p in patterns)
 
 
-@attrs.define
+@dataclasses.dataclass
 class ObservableFilter:
     """Include/exclude lists with substring and fnmatch-glob matching.
 
@@ -74,7 +74,7 @@ class ObservableFilter:
     """
 
     include_list: list[str]
-    exclude_list: list[str] = attrs.field(factory=list)
+    exclude_list: list[str] = dataclasses.field(default_factory=list)
 
     def accept_observable(self, observable_name: str) -> bool:
         included = _matches_any(observable_name, self.include_list, use_glob=False) or _matches_any(

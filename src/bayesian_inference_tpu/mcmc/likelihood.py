@@ -33,7 +33,7 @@ from typing import Any, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from bayesian_inference_tpu.utils import struct
 
 from bayesian_inference_tpu.models import emulator as emulator_mod
 from bayesian_inference_tpu.models import gp as gp_mod
@@ -47,15 +47,10 @@ class GroupGPs:
     posts: gp_mod.GPPosterior  # stacked over the group's PCs
 
 
-# Cost of one extra fused-kernel launch per likelihood eval, in the same
-# count*nb^2 units as the per-block Cholesky work. Calibrated on TPU v5e
-# (scripts/probe_buckets.py, 2026-08-17, 5000-step production scans):
-#   fixture    (padded {8:6,16:6,24:4}):  3 buckets 165 us/step, 1 bucket 174
-#   production (padded {8:40,16:96,24:8}): 3 buckets 283, 2 buckets 294, 1: 387
-# i.e. a launch inside the scan body costs only ~2-4 us while padded work runs
-# ~1.5-2 ns per unit — fine bucketing wins at realistic spreads, and the
-# constant (~a launch's worth of work) exists to merge only near-free cases
-# and to keep one outlier width from adding a launch for a single block.
+# Cost of one extra kernel launch per likelihood eval, in the same count*nb^2
+# units as the per-block Cholesky work: it merges only near-free cases and
+# keeps one outlier width from adding a launch for a single block. Not yet
+# calibrated on the H100.
 _LAUNCH_COST = 2048.0
 
 
@@ -66,10 +61,11 @@ def bucket_layout(
 
     Each bucket runs as ONE batched fused-Cholesky kernel launch, with every
     block padded to the bucket width. Two costs trade off: padding waste
-    (count * nb_pad^2 per-lane work vs the block's own width) and per-launch
-    overhead. A tiny DP over the sorted distinct padded widths picks the
-    partition minimizing  sum_groups [launch_cost + (count in group) *
-    (group max nb)^2]  — one global bucket when the width spread is mild
+    (count * w^2 per-walker work, w the width the kernel runs the bucket at:
+    its max nb padded to a power of two, ops/pallas_mvn.padded_width) and
+    per-launch overhead. A tiny DP over the sorted distinct padded widths
+    picks the partition minimizing  sum_groups [launch_cost + (count in
+    group) * w^2]  — one global bucket when the width spread is mild
     (both bundled profiles: spread 8-24, waste < 3x, launches dominate), a
     split only when outlier widths would inflate the padded work past the
     cost of another launch. Returns [(nb_pad, [observable indices])] in
@@ -78,6 +74,8 @@ def bucket_layout(
     the identical layout.
     """
     import os as _os
+
+    from bayesian_inference_tpu.ops.pallas_mvn import padded_width
 
     launch_cost = float(_os.environ.get("BIQ_BUCKET_LAUNCH_COST", launch_cost))
     pads: dict[int, list[int]] = {}
@@ -92,7 +90,7 @@ def bucket_layout(
     best: list[tuple[float, int]] = [(0.0, 0)] + [(float("inf"), 0)] * n
     for j in range(1, n + 1):
         for i in range(j):  # last group = nbs[i:j], padded to nbs[j-1]
-            cost = best[i][0] + launch_cost + sum(counts[i:j]) * nbs[j - 1] ** 2
+            cost = best[i][0] + launch_cost + sum(counts[i:j]) * padded_width(nbs[j - 1]) ** 2
             if cost < best[j][0]:
                 best[j] = (cost, i)
     cuts = []
@@ -160,9 +158,6 @@ class EmulatorLikelihood:
         Every group's stacked GPs share the analysis design matrix, so the
         shared-sqdiff batched predict applies (gp.predict_all_shared) — the
         per-dim difference tensor is computed once per group, not per PC.
-        (A fused Pallas predict kernel was A/B'd on-device 2026-08-18 and
-        LOST to this XLA path — see NOTES.md "fused GP predict"; don't
-        re-attempt without new evidence.)
         """
         zs, vs = [], []
         for g in self.groups:
@@ -177,8 +172,8 @@ class EmulatorLikelihood:
             from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
 
             # One kernel per size bucket does residual + covariance assembly +
-            # Cholesky + loglike in VMEM — no (W, n_obs, nb, nb) tensor ever
-            # hits HBM.
+            # Cholesky + loglike in registers — no (W, n_obs, nb, nb) tensor
+            # in device memory (ops/pallas_mvn.py).
             ll = None
             for U_b, D_b, d0_b in zip(self.U, self.D, self.d0):
                 term = fused_block_mvn_loglike(U_b, D_b, d0_b, z, v)
@@ -294,8 +289,8 @@ def build_likelihood(
 
     def to_device(x):
         # Cast on HOST then device_put: an on-device cast would compile one
-        # tiny convert program per distinct shape (seconds each on a remote
-        # compile service); a pure transfer compiles nothing.
+        # tiny convert program per distinct shape; a pure transfer compiles
+        # nothing.
         return jax.device_put(np.asarray(x, np_dtype))
 
     if emulator_cov_unexplained is None:

@@ -282,7 +282,7 @@ def _taus_from_power(
     """Cumulative tau estimates from a walker-averaged power spectrum.
 
     ``power``: (nfft//2+1, P, n_d). The inverse transform runs in the chain's
-    own precision: float32 chains (TPU downloads) keep the cheap
+    own precision: float32 chains (device downloads) keep the cheap
     single-precision irfft; float64 chains preserve the accuracy the
     per-walker estimator delivers. Returns (L, P, n_d).
     """
@@ -352,10 +352,9 @@ def device_mean_power(chain_pieces) -> tuple[np.ndarray, int]:
     """Walker-averaged ACF power spectrum computed ON the accelerator.
 
     The forward transforms are the expensive part of ``integrated_time``
-    (600 series x 50k+ points): on the shared 1-vCPU host they take 2-30 s
-    depending on CPU steal, while the TPU runs the full-length (pow2) batch
-    in <0.1 s with stable timing (probe 2026-08-17, scripts/probe_tpu_fft.py).
-    Only the (nfft//2+1, n_d) spectrum is downloaded (~1.6 MB at production
+    (600 series x 50k+ points); here they run as one batched device FFT
+    instead of host passes whose time depends on the host's free cores. Only
+    the (nfft//2+1, n_d) spectrum is downloaded (~1.6 MB at production
     scale); pass the result to ``integrated_time(..., mean_power=...)``.
 
     ``chain_pieces``: one (n_t, n_w, n_d) array or a list of time-axis slabs
@@ -386,8 +385,8 @@ def device_closure_stats(chain_pieces) -> tuple[np.ndarray, int, np.ndarray]:
     scans over the P points (FFT working buffers are reused per iteration, so
     HBM stays bounded at one point's transform); only the (P, nfft//2+1, n_d)
     spectra and (P, n_d) R-hats download. A single compiled program — NOT a
-    per-point host loop, which would compile one remote program per literal
-    slice index (eager-dispatch hazard, CLAUDE.md). Returns
+    per-point host loop, which would compile one program per literal slice
+    index. Returns
     (power (P, nfft//2+1, n_d), nfft, rhat (P, n_d)).
     """
     import jax.numpy as jnp

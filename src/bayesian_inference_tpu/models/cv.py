@@ -3,7 +3,7 @@
 The reference declares this but never builds it (config
 jet_substructure.yaml:85-90: ``cross_validation: False`` /
 ``cross_validation_k: 5`` under a "TODO: Cross-validation" comment). Here it
-is implemented TPU-natively: each fold's multi-restart GP fit is the same
+is implemented on the device: each fold's multi-restart GP fit is the same
 fully vmapped single-launch program the production fit uses
 (models/gp_fit.py), so a full k-fold pass costs k fused fits.
 

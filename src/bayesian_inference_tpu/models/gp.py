@@ -17,7 +17,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from bayesian_inference_tpu.utils import struct
 
 from bayesian_inference_tpu.ops.gram import (
     KernelConfig,
@@ -97,12 +97,11 @@ def log_marginal_likelihood_matmul(
 
     Value-identical (up to fp reordering) to
     :func:`log_marginal_likelihood_sqdiff`, but the Cholesky runs through
-    ops/blocked_cholesky (batched MXU panels + one small Pallas kernel) and
-    the gradient uses dLML/dK = (alpha alpha^T - K^{-1})/2 chained through
-    analytic dK/dtheta — no TriangularSolve and no Cholesky backward pass
-    anywhere (XLA lowers both far off MXU peak at the fit's thousands-of-
-    small-matrices shapes). Nested-vmap safe: the factorization collapses all
-    vmapped axes into one lane batch (blocked_cholesky.chol_inv_batched).
+    ops/blocked_cholesky (batched matmul panels + a batched diagonal-block
+    factorization) and the gradient uses dLML/dK = (alpha alpha^T - K^{-1})/2
+    chained through analytic dK/dtheta — no Cholesky backward pass anywhere.
+    Nested-vmap safe: the factorization collapses all vmapped axes into one
+    batch (blocked_cholesky.chol_inv_batched).
 
     ``precision`` (static) sets the factorization-panel and LML/gradient
     einsum fidelity for value AND grad — the GP fit's exploration stage
@@ -208,9 +207,9 @@ def posterior_from_params_matmul(
     """posterior_from_params via the blocked matmul-only factorization.
 
     Same contract and (up to fp reordering) same values; used by the fit when
-    lml_impl='matmul' so the final posterior build also avoids XLA's
-    Cholesky/TriangularSolve on TPU. vmap-safe (chol_inv_batched collapses
-    the stacked-PC axis into the kernel's lane batch).
+    lml_impl='matmul' so the final posterior build shares its factorization.
+    vmap-safe (chol_inv_batched collapses the stacked-PC axis into its
+    batch).
     """
     from bayesian_inference_tpu.ops.blocked_cholesky import chol_inv_batched
 
@@ -285,9 +284,9 @@ def predict_all_shared(
     return mean, jnp.maximum(var, 0.0)
 
 
-# Jitted wrappers for host-facing (eager) callers: on TPU every eager op
-# dispatch is expensive, so setup factorizations and batch predictions must
-# each be a single compiled program.
+# Jitted wrappers for host-facing (eager) callers: setup factorizations and
+# batch predictions each run as a single compiled program, not as a chain of
+# eager dispatches.
 posterior_from_params_jit = jax.jit(posterior_from_params)
 posteriors_from_params_stacked = jax.jit(
     lambda cfg, params, X, Y_cols, alpha_jitter: jax.vmap(

@@ -2,8 +2,8 @@
 
 Replaces sklearn's per-PC loop of L-BFGS-B runs (reference emulation.py:169-172,
 n_restarts_optimizer=50): every (principal component, restart) pair optimizes
-simultaneously in ONE vmapped L-BFGS launch -- the TPU-native answer to the
-reference's "hot loop #2" (SURVEY.md section 3.2).
+simultaneously in ONE vmapped L-BFGS launch -- the device-batched answer to
+the reference's "hot loop #2" (SURVEY.md section 3.2).
 
 Bounded optimization: hyperparameters live in log space (as sklearn's
 kernel.theta); box bounds are enforced by a sigmoid reparameterization
@@ -21,7 +21,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from bayesian_inference_tpu.utils import struct
 
 from bayesian_inference_tpu.models.gp import (
     GPPosterior,
@@ -98,19 +98,17 @@ class GPFitSpec:
     # schedule (docs/fit_schedule_study.json).
     halving_schedule: tuple = struct.field(pytree_node=False, default=())
     trial_steps: tuple = struct.field(pytree_node=False, default=(1.0,))
-    # LML implementation: "autodiff" = jnp.linalg.cholesky + AD backward
-    # (robust host default); "matmul" = blocked MXU factorization with the
+    # LML implementation: "matmul" = blocked factorization with the
     # closed-form gradient (ops/blocked_cholesky + gp.log_marginal_likelihood
-    # _matmul) — the TPU fit path. Value/grad parity is pinned by
-    # tests/test_gp.py::test_lml_matmul_matches_autodiff.
-    lml_impl: str = struct.field(pytree_node=False, default="autodiff")
+    # _matmul); "autodiff" = jnp.linalg.cholesky + AD backward. Value/grad
+    # parity is pinned by tests/test_blocked_cholesky.py::
+    # test_lml_matmul_matches_autodiff. "matmul" is the faster one on the
+    # H100 (chip_smoke.py phase 4; PERF.md).
+    lml_impl: str = struct.field(pytree_node=False, default="matmul")
     # Matmul precision for the EXPLORATION stage's factorization panels and
-    # LML/gradient einsums ("highest" | "high" | "default"). Device A/B
-    # 2026-08-20 (probe_fit BIQ_PROBE_FIT_MM=1, B=2091, N=200): HIGH is
-    # timing-NEUTRAL (126.6 vs 126.1 ms/iter) — the matmul fit path is not
-    # MXU-pass-bound — so the default stays "highest" (full fidelity for
-    # free). The knob and its trace-cache-keying semantics are kept for
-    # other shapes (BIQ_FIT_EXPLORE_CHOL overrides; see NOTES.md).
+    # LML/gradient einsums ("highest" | "high" | "default"); "highest" keeps
+    # full fidelity. BIQ_FIT_EXPLORE_CHOL overrides; the argument keys the
+    # trace caches.
     explore_precision: str = struct.field(pytree_node=False, default="highest")
 
 
@@ -258,8 +256,8 @@ def _fit_gps_impl(
 
     D2 = pairwise_sqdiff(X)  # (N, N, d), shared by every fit instance
 
-    # Exploration rungs: basin selection tolerates reduced matmul precision
-    # (~6x cheaper on the MXU); the survivors are re-polished at full float32.
+    # Exploration rungs: basin selection tolerates reduced matmul precision;
+    # the survivors are re-polished at full float32.
     # The gram einsums follow the ambient default; the factorization panels +
     # LML/grad einsums run at spec.explore_precision (a STATIC argument so it
     # keys the trace caches — the polish stage below keeps the HIGHEST
@@ -332,7 +330,7 @@ def spec_from_reference_config(
     n_iters: int = 100,
     alpha_jitter: float = 1e-10,
     dtype=jnp.float64,
-    lml_impl: str = "auto",
+    lml_impl: str | None = None,
 ) -> GPFitSpec:
     """Build a GPFitSpec with the reference's kernel initialization semantics
     (emulation.py:132-162): initial length scale = prior range (max - min),
@@ -356,17 +354,13 @@ def spec_from_reference_config(
         theta0_parts.append(np.log([noise_level]))
     import os
 
-    if lml_impl == "auto":
-        # matmul-only path on TPU (blocked factorization + closed-form grad);
-        # autodiff over jnp.linalg.cholesky elsewhere. BIQ_FIT_LML overrides
-        # for A/B measurement.
-        lml_impl = os.environ.get("BIQ_FIT_LML") or (
-            "matmul" if jax.default_backend() == "tpu" else "autodiff"
-        )
-    # Exploration-stage panel/LML precision. Default "highest" everywhere:
-    # the device A/B found HIGH timing-neutral on the matmul path (the fit is
-    # not MXU-pass-bound — NOTES.md 2026-08-20), so there is nothing to buy
-    # with the reduced fidelity. BIQ_FIT_EXPLORE_CHOL overrides for A/Bs.
+    if lml_impl is None:
+        # One default on every platform: the matmul implementation took
+        # 6.95 ms per value+grad at B=2,091, N=195 on an H100 against 15.46 ms
+        # for autodiff (chip_smoke.py phase 4; PERF.md). BIQ_FIT_LML overrides.
+        lml_impl = os.environ.get("BIQ_FIT_LML") or "matmul"
+    # Exploration-stage panel/LML precision: "highest" unless
+    # BIQ_FIT_EXPLORE_CHOL overrides.
     explore_precision = os.environ.get("BIQ_FIT_EXPLORE_CHOL") or "highest"
     return GPFitSpec(
         cfg=cfg,

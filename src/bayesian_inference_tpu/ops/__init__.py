@@ -1,8 +1,9 @@
 """Numerical kernels: Gram-matrix construction, batched Cholesky/MVN
-log-likelihood (dense and Woodbury low-rank), and Pallas TPU kernels for the
-hot paths. These replace the compiled-library calls the reference delegates to
-(sklearn kernels, LAPACK dpotrf/dpotrs, emcee's core; see SURVEY.md section 2,
-"native-equivalent components")."""
+log-likelihood (dense and Woodbury low-rank), and the fused block-MVN GPU
+kernel of the MCMC hot loop (ops/pallas_mvn.py). These replace the
+compiled-library calls the reference delegates to (sklearn kernels, LAPACK
+dpotrf/dpotrs, emcee's core; see SURVEY.md section 2, "native-equivalent
+components")."""
 
 from bayesian_inference_tpu.ops.gram import (
     KernelConfig,

@@ -1,19 +1,15 @@
 """Batched blocked Cholesky + triangular inverse, built for the GP-fit batch.
 
 The fit objective factorizes thousands of (N, N) kernel matrices per L-BFGS
-iteration (N ~ 200 design points, batch ~ 2,000 PC x restart instances).
-XLA's Cholesky and TriangularSolve lower to sequential panel loops that run
-far off MXU peak at these shapes, and the LML *gradient* doubles the cost
-through the Cholesky backward pass (reference counterpart: sklearn GPR's
-L-BFGS restarts over LAPACK, emulation.py:164-178).
-
-This module restructures the whole computation as batched MXU matmuls plus
-ONE small Pallas kernel for the only intrinsically sequential piece — the
-NB x NB diagonal-block factorization (with its triangular inverse), batched
-across instances on the 128 lanes:
+iteration (N ~ 230 design points, batch ~ 2,000 PC x restart instances;
+reference counterpart: sklearn GPR's L-BFGS restarts over LAPACK,
+emulation.py:164-178). This module is the "matmul" implementation of that
+objective (models/gp.log_marginal_likelihood_matmul): a blocked factorization
+whose panels are batched matrix products, plus one batched Cholesky and
+triangular inverse of each NB x NB diagonal block:
 
   blocked factorization, per panel k:
-      L[k][k], invL[k][k] = diag_chol_inv(A[k][k])          (Pallas, lanes=batch)
+      L[k][k], invL[k][k] = chol, inverse(A[k][k])         (XLA batched)
       L[i][k]  = A[i][k] @ invL[k][k]^T                     (batched matmul)
       A[i][j] -= L[i][k] @ L[j][k]^T                        (batched matmul)
   block forward substitution for the full triangular inverse:
@@ -21,16 +17,14 @@ across instances on the 128 lanes:
 
 From invL, everything the log-marginal likelihood and its closed-form
 gradient need is matmul work: alpha = invL^T (invL y), log|K| from the
-diagonal blocks, K^{-1} = invL^T invL. No TriangularSolve, no Cholesky
-backward anywhere.
+diagonal blocks, K^{-1} = invL^T invL.
 
 Panel matmuls run at the explicit ``precision`` argument — HIGHEST by
 default, regardless of the ambient matmul precision: the trailing Schur
-updates feed later pivots, and single-pass bf16 breaks positive-definiteness
-at this problem's conditioning (see the package __init__ note on
-jax_default_matmul_precision). The GP fit's exploration stage may lower it
-to 3-pass bf16 (GPFitSpec.explore_precision) — basin selection tolerates
-that; survivor polish and posterior builds do not. Precision is an ARGUMENT
+updates feed later pivots, and reduced-precision products break
+positive-definiteness at this problem's conditioning (see the package
+__init__ note on jax_default_matmul_precision). The GP fit's exploration
+stage may lower it (GPFitSpec.explore_precision). Precision is an ARGUMENT
 (part of every trace-cache key), not a context: jax caches custom_vjp/
 custom_vmap traces by function identity + abstract args, so a trace-time
 context would leak whichever precision traced first into later stages.
@@ -39,12 +33,9 @@ context would leak whichever precision traced first into later stages.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -59,134 +50,27 @@ def precision_from_name(p):
     """jax.lax.Precision from its lowercase name (Precision values pass through)."""
     return _PRECISION_NAMES.get(p, p)
 
-# Diagonal block size; N pads to a multiple (identity on the pad). Trace-time
-# A/B knob: BIQ_CHOL_NB (multiple of 8 — Mosaic sublane tiling). Measured at
-# the production fit shape (B=2091, N=200, 2026-08-19): 56/64/72/104 are all
-# within noise (281-293 ms value+grad) despite padded areas from 1.08x to
-# 1.64x — the factorization cost is NOT padding-bound at this shape (the
-# MXU-block work saved is re-spent in the VPU diagonal kernel). See NOTES.md.
-NB = int(os.environ.get("BIQ_CHOL_NB", "64"))
+
+# Diagonal block size; N pads to a multiple (identity on the pad).
+NB = 64
 
 
-def _diag_chol_inv_kernel(nb: int, a_ref, l_ref, inv_ref):
-    """Factor (nb, nb, lanes) SPD blocks and invert the factor, per lane.
-
-    Rank-1-downdate Cholesky exactly like ops/pallas_mvn._mvn_kernel, storing
-    the L columns, followed by a column-oriented forward substitution of the
-    identity to produce invL. Everything is (nb, lanes)-shaped VPU work with
-    the instance batch on the lane dimension.
-    """
-    A = a_ref[:]  # (nb, nb, lanes)
-    lanes = A.shape[-1]
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (nb, lanes), 0)
-
-    # Factorization, statically unrolled (Mosaic has no dynamic_slice on
-    # values; ~2*nb unrolled bodies total stay well within compile budgets).
-    # l_ref[j] stores COLUMN j of L (the wrapper transposes back).
-    cols = []
-    for j in range(nb):
-        pivot = A[j, :, :][j : j + 1, :]              # (1, lanes) = A[j, j, :]
-        inv_p = jax.lax.rsqrt(pivot)
-        col = A[:, j, :] * inv_p                      # (nb, lanes)
-        col = jnp.where(row_ids >= j, col, jnp.zeros_like(col))
-        cols.append(col)
-        l_ref[j] = col
-        A = A - col[:, None, :] * col[None, :, :]
-
-    # Triangular inverse, all right-hand sides at once: solve L X = I by
-    # forward substitution over rows; step i emits row i of X for every RHS
-    # column and removes L[:, i]'s contribution from the running residual.
-    # inv_ref[i] stores ROW i of invL (no transpose in this output).
-    R = jnp.where(
-        jax.lax.broadcasted_iota(jnp.int32, (nb, nb, lanes), 0)
-        == jax.lax.broadcasted_iota(jnp.int32, (nb, nb, lanes), 1),
-        jnp.ones((nb, nb, lanes), A.dtype),
-        jnp.zeros((nb, nb, lanes), A.dtype),
-    )
-    for i in range(nb):
-        Li = cols[i]                                  # (nb, lanes) = L[:, i]
-        y = R[i : i + 1, :, :] / Li[i : i + 1, :][None, :, :]
-        inv_ref[i] = y[0]
-        R = R - Li[:, None, :] * y
+def _diag_chol_inv(A: jax.Array) -> tuple[jax.Array, jax.Array]:
+    """(B, nb, nb) SPD -> (L, invL) through XLA's batched Cholesky and
+    triangular solve."""
+    L = jnp.linalg.cholesky(A)
+    eye = jnp.broadcast_to(jnp.eye(A.shape[-1], dtype=A.dtype), A.shape)
+    return L, jax.scipy.linalg.solve_triangular(L, eye, lower=True)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _diag_chol_inv_pallas(At: jax.Array, interpret: bool = False):
-    """(nb, nb, Bp) -> (L, invL) both (nb, nb, Bp); Bp a multiple of 128."""
-    nb, _, Bp = At.shape
-    kernel = functools.partial(_diag_chol_inv_kernel, nb)
-    lanes = 128
-    return pl.pallas_call(
-        kernel,
-        grid=(Bp // lanes,),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb, nb, Bp), At.dtype),
-            jax.ShapeDtypeStruct((nb, nb, Bp), At.dtype),
-        ),
-        in_specs=[
-            pl.BlockSpec((nb, nb, lanes), lambda b: (0, 0, b), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((nb, nb, lanes), lambda b: (0, 0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((nb, nb, lanes), lambda b: (0, 0, b), memory_space=pltpu.VMEM),
-        ),
-        # The kernel's live set (working copy of A, the nb factor columns, the
-        # substitution residual, plus double-buffered in/out windows) needs
-        # ~21 MB of scoped VMEM at nb=64/128 lanes — over the 16 MB default
-        # limit but a small fraction of the chip's 128 MB VMEM (measured:
-        # v5e AOT compile OOM at 20.40M/16.00M, 2026-08-18). Scales ~nb^2 for
-        # the BIQ_CHOL_NB A/B knob.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(48 * 1024 * 1024 * max(1.0, (nb / 64) ** 2))
-        ),
-        interpret=interpret,
-    )(At)
-
-
-def _diag_chol_inv(A: jax.Array, interpret: bool | None):
-    """(B, nb, nb) SPD -> (L, invL), via the lane-batched kernel on TPU or
-    LAPACK-backed primitives elsewhere."""
-    if interpret is None:
-
-        def host(A):
-            # Non-TPU fallback: LAPACK-backed primitives are fast there and
-            # compile in O(1) graph size (the unrolled/Pallas structure exists
-            # because XLA:TPU lowers these badly, not XLA:CPU).
-            L = jnp.linalg.cholesky(A)
-            eye = jnp.broadcast_to(jnp.eye(A.shape[-1], dtype=A.dtype), A.shape)
-            inv = jax.scipy.linalg.solve_triangular(L, eye, lower=True)
-            return L, inv
-
-        return jax.lax.platform_dependent(
-            A,
-            tpu=lambda a: _diag_chol_inv(a, interpret=False),
-            default=host,
-        )
-    B, nb, _ = A.shape
-    pad = (-B) % 128
-    At = jnp.moveaxis(A, 0, -1)  # (nb, nb, B)
-    if pad:
-        eye_t = jnp.broadcast_to(jnp.eye(nb, dtype=A.dtype)[:, :, None], (nb, nb, pad))
-        At = jnp.concatenate([At, eye_t], axis=-1)
-    Lt, It = _diag_chol_inv_pallas(At, interpret=interpret)
-    # L output carries columns at the leading index (out[j, i, b] = L[b, i, j]);
-    # the inverse output carries rows (out[i, c, b] = invL[b, i, c]).
-    return jnp.transpose(Lt[..., :B], (2, 1, 0)), jnp.transpose(It[..., :B], (2, 0, 1))
-
-
-def blocked_chol_inv(
-    K: jax.Array, interpret: bool | None = None, precision=_HI
-) -> tuple[jax.Array, jax.Array]:
+def blocked_chol_inv(K: jax.Array, precision=_HI) -> tuple[jax.Array, jax.Array]:
     """Batched (B, N, N) SPD -> (invL, half_logdet) with L K-factor inverse.
 
     N is padded internally to a multiple of NB with an identity diagonal pad
-    (decoupled: the returned invL/half_logdet slice back exactly). ``interpret``
-    follows the pallas convention: None = dispatch by lowering platform,
-    True/False force the kernel's interpreter/compiled mode.
+    (decoupled: the returned invL/half_logdet slice back exactly).
 
-    Panel matmuls run at ``precision`` (HIGHEST default; the GP fit's
-    exploration stage passes HIGH) — NEVER the ambient
-    jax.default_matmul_precision: single-pass bf16 Schur updates feed later
+    Panel matmuls run at ``precision`` (HIGHEST default) — NEVER the ambient
+    jax.default_matmul_precision: reduced-precision Schur updates feed later
     pivots and break positive-definiteness at this problem's conditioning
     (see the package __init__ note).
     """
@@ -211,7 +95,7 @@ def blocked_chol_inv(
     half_logdet = jnp.zeros((B,), K.dtype)
 
     for k in range(n):
-        Lkk, invLkk = _diag_chol_inv(Ablk[k][k], interpret)
+        Lkk, invLkk = _diag_chol_inv(Ablk[k][k])
         L[k][k], Inv[k][k] = Lkk, invLkk
         half_logdet = half_logdet + jnp.sum(
             jnp.log(jnp.diagonal(Lkk, axis1=-2, axis2=-1)), axis=-1
@@ -269,11 +153,9 @@ def chol_inv_batched(K: jax.Array, precision=_HI) -> tuple[jax.Array, jax.Array]
     """(B, N, N) SPD -> (invL (B, N, N), half_logdet (B,)); vmap-collapsing.
 
     The GP fit evaluates its objective under nested vmaps (instances x trial
-    candidates); a plain vmap over the Pallas diagonal kernel would lift it to
-    one 128-lane-padded call PER INSTANCE. The batching rule instead folds any
-    vmapped axis into the existing batch (lane) dimension and re-enters the
-    same function, so arbitrarily nested vmaps all collapse into one
-    full-width kernel launch. ``precision`` sets the panel matmul fidelity
+    candidates). The batching rule folds any vmapped axis into the existing
+    batch dimension and re-enters the same function, so arbitrarily nested
+    vmaps all collapse into one batched factorization. ``precision`` sets the panel matmul fidelity
     (see blocked_chol_inv).
     """
     return _chol_inv_batched_for(precision_from_name(precision))(K)

@@ -1,13 +1,10 @@
 """Batched small-matrix Cholesky + forward substitution, unrolled over columns.
 
-XLA's generic Cholesky/TriangularSolve lower to blocked LAPACK-style loops that
-are pathologically slow for tiny matrices on TPU (a (800, 21, 21) factorization
-costs ~2 ms — it IS the MCMC hot-loop cost). For n <= ~32 we instead unroll the
-column recurrence into n fused batch-wide steps: each step is one rsqrt + one
-rank-1 downdate over the whole (batch, n, n) tensor — pure VPU work with no
-per-matrix serialization.
-
-Used automatically by ops.mvn.mvn_loglike_dense for small trailing dimensions.
+For many tiny matrices, unrolling the column recurrence into n batch-wide
+steps (one rsqrt + one rank-1 downdate over the whole (batch, n, n) tensor)
+avoids a per-matrix factorization loop. This is the plain reference of the
+fused block-MVN kernel (ops/pallas_mvn.py) and the route
+ops.mvn.mvn_loglike_dense takes for trailing dimensions n <= 32.
 """
 
 from __future__ import annotations

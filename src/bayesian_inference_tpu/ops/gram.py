@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from bayesian_inference_tpu.utils import struct
 
 
 @struct.dataclass
@@ -53,7 +53,7 @@ class KernelParams:
 def _scaled_sqdist(X1: jax.Array, X2: jax.Array, length_scale: jax.Array) -> jax.Array:
     """||(x-y)/ls||^2 for all pairs; (n1, n2).
 
-    Computed from explicit differences. The MXU-friendly expansion
+    Computed from explicit differences. The matmul-friendly expansion
     a^2 + b^2 - 2ab suffers catastrophic cancellation in float32 when pair
     distances are small relative to coordinate magnitudes — at the fitted
     length scales of this problem that noise propagates through K^{-1}y into

@@ -1,27 +1,39 @@
-"""Pallas TPU kernel: fused batched tiny-MVN log-likelihood.
+"""Fused block-MVN log-likelihood: a Pallas kernel for NVIDIA GPUs.
 
-THE hot op of the MCMC loop: for every (walker, observable-block) pair,
-factorize the small covariance block and evaluate the Gaussian log-likelihood
+THE hot op of the MCMC loop. For every (walker, observable block) pair the
+block-mode likelihood (mcmc/likelihood.py) needs
 
-    ll = -1/2 ||L^{-1} dY||^2 - sum(log diag L),   C = L L^T.
+    dY = d0 + U z                C = D + U diag(v) U^T
+    ll = -1/2 ||L^{-1} dY||^2 - sum(log diag L),   C = L L^T
 
-XLA's generic Cholesky/TriangularSolve at these shapes (e.g. 800 matrices of
-21x21) costs ~2 ms per call and minutes of compile time; this kernel runs the
-whole thing in VMEM with the batch on the lane dimension, fusing the column
-factorization, the forward substitution, and the log-determinant into one
-pass — no L is ever materialized:
+with U (nb, k), D (nb, nb), d0 (nb,) constant per block and z, v (k,) the
+walker's emulator PC means and variances. Summed over blocks it gives the
+walker's log-likelihood.
 
-  per column j:  inv_p = rsqrt(A[j,j])          (vector over batch lanes)
-                 col   = A[:,j] * inv_p          masked below-diagonal
-                 y_j   = b[j] * inv_p ; b -= col * y_j
-                 quad += y_j^2 ; half_logdet += log(A[j,j])/2
-                 A    -= col col^T                (rank-1 Schur downdate)
+The plain XLA version (``composed_block_mvn_loglike``) materializes the
+(W, n_obs, nb, nb) covariance tensor in device memory and factors it with
+ops/mvn.mvn_loglike_dense: for nb <= 32 the unrolled column recurrence of
+ops/cholesky.tiny_mvn_loglike, a chain of XLA fusions, else XLA's Cholesky. The kernel (``_fused_kernel``) does assembly, factorization, forward
+substitution and log-determinant in registers, one program per (observable
+block, walker tile):
 
-Layout: (nb, nb, batch) with batch padded to a lane multiple; padded lanes get
-an identity covariance and a zero RHS, contributing exactly 0.
+  C, b   = D, d0                               (bw, nbp, nbp), (bw, nbp)
+  per PC k:      C += v[:, k] * U[:, k] U[:, k]^T ; b += z[:, k] * U[:, k]
+  per column j:  col = C[:, :, j] / sqrt(C[:, j, j])   masked below-diagonal
+                 y_j = b[:, j] / sqrt(C[:, j, j]) ; b -= col * y_j
+                 quad += y_j^2 ; half_logdet += log(C[:, j, j]) / 2
+                 C -= col col^T                     (rank-1 Schur downdate)
 
-On non-TPU backends the portable unrolled jnp implementation
-(ops/cholesky.tiny_mvn_loglike) is used instead.
+All arithmetic is float32 fused multiply-adds on the CUDA cores ("ieee"
+precision): no tensor-core pass, so no TF32 rounding anywhere in the kernel.
+Triton needs power-of-two tensor sizes, so a block of width nb runs at
+nbp = next_power_of_2(nb) with masked loads: the padded rows and columns hold
+an identity covariance and a zero residual and contribute exactly 0.
+
+Dispatch is by lowering platform: the kernel on CUDA, the composed XLA path
+everywhere else (the CPU tests' reference). One stated shape rule holds on
+every platform: blocks wider than ``MAX_KERNEL_NB`` take the composed XLA
+path, because the kernel keeps a whole padded block per walker in registers.
 """
 
 from __future__ import annotations
@@ -31,367 +43,97 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from bayesian_inference_tpu.ops.mvn import mvn_loglike_dense
+
+# Widest observable block the kernel takes (pads to 64: one walker per program).
+MAX_KERNEL_NB = 48
+# Register budget of one program: walkers x padded block elements.
+_TILE_ELEMS = 4096
+_NUM_WARPS = 4
 
 
-def _dot_precision():
-    """Mosaic dot precision for the NON-bf16x3 dot modes (see ``_mvn_dot``).
-
-    ``highest`` mode: HIGHEST (6-pass bf16, true-f32) — Mosaic's only
-    full-precision option; asking for the framework's global HIGH standard
-    directly is a DEAD END (`NotImplementedError: Unsupported dot precision:
-    HIGH`, measured 2026-08-19), which is why HIGH is emulated manually in
-    ``_mvn_dot`` instead. ``default`` mode: single-pass bf16 — PROBE-ONLY
-    (wrong numerics: single-pass bf16 breaks covariance positive-
-    definiteness in this workload, CLAUDE.md); used by scripts/probe_step.py
-    to measure the dot-pass share of the kernel cost. The Cholesky sweep
-    itself is exact f32 VPU math under every mode."""
-    import os as _os
-
-    if _os.environ.get("BIQ_MVN_DOT", "") == "default":
-        return jax.lax.Precision.DEFAULT
-    return jax.lax.Precision.HIGHEST
+def padded_width(nb: int) -> int:
+    """The width the kernel runs an nb-wide block at (Triton: a power of two)."""
+    return pl.next_power_of_2(nb)
 
 
-def _mvn_dot(a: jax.Array, b: jax.Array, mode: str = "bf16x3") -> jax.Array:
-    """Assembly dot at the framework's HIGH (3-pass bf16) matmul standard.
-
-    Mosaic rejects ``Precision.HIGH`` outright, so inside kernels HIGH is
-    emulated explicitly: split both f32 operands into bf16 hi + bf16 lo
-    residual and sum three single-pass MXU dots (hi*hi + hi*lo + lo*hi; the
-    dropped lo*lo term is O(2^-16) of the others' rounding, exactly XLA's
-    bf16_3x scheme). Probe decomposition (2026-08-19, production width):
-    HIGHEST dots cost 43 us/step of the 88 us kernel, single-pass 45 —
-    halving the passes is the single largest remaining step-kernel win.
-
-    ``mode``: ``bf16x3`` (default — matches the framework-wide HIGH matmul
-    standard; kernel outputs move ~2e-6 relative vs the f32 oracle, see
-    tests/test_pallas_mvn.py), ``highest`` (the 6-pass Mosaic precision,
-    strict-parity oracle + fallback), ``default`` (probe-only, wrong
-    numerics). Selected per call site via ``BIQ_MVN_DOT`` in
-    ``fused_block_mvn_loglike`` and threaded statically."""
-    if mode != "bf16x3":
-        return jax.lax.dot(a, b, precision=_dot_precision())
-    f32, bf16 = jnp.float32, jnp.bfloat16
-    a_hi = a.astype(bf16)
-    a_lo = (a - a_hi.astype(f32)).astype(bf16)
-    b_hi = b.astype(bf16)
-    b_lo = (b - b_hi.astype(f32)).astype(bf16)
-
-    def d(x, y):
-        return jax.lax.dot(
-            x, y, precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=f32,
-        )
-
-    return d(a_hi, b_hi) + d(a_hi, b_lo) + d(a_lo, b_hi)
+def kernel_tile(nb: int, n_walkers: int) -> tuple[int, int]:
+    """(nbp, bw): the padded block width and the walkers per program."""
+    nbp = padded_width(nb)
+    bw = max(1, min(pl.next_power_of_2(n_walkers), _TILE_ELEMS // (nbp * nbp)))
+    return nbp, bw
 
 
-def _mvn_kernel(nb: int, a_ref, b_ref, out_ref):
-    A = a_ref[:]          # (nb, nb, batch)
-    b = b_ref[:]          # (nb, batch)
-    batch = A.shape[-1]
-    quad = jnp.zeros((1, batch), A.dtype)
-    half_logdet = jnp.zeros((1, batch), A.dtype)
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (nb, batch), 0)
+def composed_block_mvn_loglike(U, D, d0, z, v) -> jax.Array:
+    """Plain XLA reference: (n_obs,nb,k),(n_obs,nb,nb),(n_obs,nb),(W,k),(W,k) -> (W,)."""
+    dY = d0 + jnp.einsum("bfk,wk->wbf", U, z)
+    C = D + jnp.einsum("bfk,wk,bgk->wbfg", U, v, U)
+    return jnp.sum(mvn_loglike_dense(dY, C), axis=-1)
 
-    for j in range(nb):
-        pivot = A[j, :, :][j : j + 1, :]                      # (1, batch) = A[j, j, :]
+
+def _fused_kernel(nb, nbp, bw, u_ref, d_ref, d0_ref, z_ref, v_ref, out_ref):
+    i = pl.program_id(0)
+    n_walkers, k = z_ref.shape
+    w = pl.program_id(1) * bw + jnp.arange(bw)
+    w_ok = w < n_walkers
+    f = jnp.arange(nbp)
+    f_ok = f < nb
+    dt = out_ref.dtype
+
+    # Masked loads: padded rows/columns read as 0, the padded diagonal as 1.
+    D = plgpu.load(
+        d_ref.at[i, f[:, None], f[None, :]],
+        mask=f_ok[:, None] & f_ok[None, :], other=0.0,
+    )
+    D = D + jnp.where((f[:, None] == f[None, :]) & ~f_ok[:, None], 1.0, 0.0).astype(dt)
+    C = jnp.broadcast_to(D[None], (bw, nbp, nbp))
+    b = jnp.broadcast_to(plgpu.load(d0_ref.at[i, f], mask=f_ok, other=0.0)[None], (bw, nbp))
+
+    def assemble(kk, carry):
+        C, b = carry
+        u = plgpu.load(u_ref.at[i, f, kk], mask=f_ok, other=0.0)       # (nbp,)
+        zk = plgpu.load(z_ref.at[w, kk], mask=w_ok, other=0.0)          # (bw,)
+        vk = plgpu.load(v_ref.at[w, kk], mask=w_ok, other=1.0)
+        uu = u[:, None] * u[None, :]
+        return C + vk[:, None, None] * uu[None], b + zk[:, None] * u[None, :]
+
+    C, b = jax.lax.fori_loop(0, k, assemble, (C, b))
+
+    g3 = jax.lax.broadcasted_iota(jnp.int32, (bw, nbp, nbp), 2)
+    f2 = jax.lax.broadcasted_iota(jnp.int32, (bw, nbp), 1)
+
+    def sweep(j, carry):
+        C, b, quad, half_logdet = carry
+        col = jnp.sum(jnp.where(g3 == j, C, 0.0), axis=2)                 # (bw, nbp)
+        pivot = jnp.sum(jnp.where(f2 == j, col, 0.0), axis=1)             # (bw,)
         inv_p = jax.lax.rsqrt(pivot)
-        col = A[:, j, :] * inv_p                              # (nb, batch)
-        col = jnp.where(row_ids >= j, col, jnp.zeros_like(col))
-        y_j = b[j : j + 1, :] * inv_p                         # (1, batch)
-        b = b - col * y_j
-        quad = quad + y_j * y_j
-        half_logdet = half_logdet + 0.5 * jnp.log(pivot)
-        A = A - col[:, None, :] * col[None, :, :]
+        col = jnp.where(f2 >= j, col * inv_p[:, None], 0.0)
+        y_j = jnp.sum(jnp.where(f2 == j, b, 0.0), axis=1) * inv_p
+        b = b - col * y_j[:, None]
+        C = C - col[:, :, None] * col[:, None, :]
+        return C, b, quad + y_j * y_j, half_logdet + 0.5 * jnp.log(pivot)
 
-    out_ref[:] = -0.5 * quad - half_logdet
+    zero = jnp.zeros((bw,), dt)
+    _, _, quad, half_logdet = jax.lax.fori_loop(0, nb, sweep, (C, b, zero, zero))
+    plgpu.store(out_ref.at[i, w], -0.5 * quad - half_logdet, mask=w_ok)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def _block_mvn_pallas(Ct: jax.Array, dYt: jax.Array, interpret: bool = False) -> jax.Array:
-    """(nb, nb, batch), (nb, batch) -> (1, batch) loglikes."""
-    nb, _, batch = Ct.shape
-    kernel = functools.partial(_mvn_kernel, nb)
+def fused_block_mvn_kernel(U, D, d0, z, v, interpret: bool = False) -> jax.Array:
+    """Per-block log-likelihoods (n_obs, W) from the Triton kernel."""
+    n_obs, nb, _ = U.shape
+    W = z.shape[0]
+    nbp, bw = kernel_tile(nb, W)
     return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((1, batch), Ct.dtype),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        functools.partial(_fused_kernel, nb, nbp, bw),
+        grid=(n_obs, pl.cdiv(W, bw)),
+        out_shape=jax.ShapeDtypeStruct((n_obs, W), z.dtype),
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(Ct, dYt)
-
-
-# --------------------------------------------------------------------------------------
-# Fully fused variant: covariance assembly + factorization + loglike in one kernel.
-#
-# The MCMC likelihood (mcmc/likelihood.py block mode) previously assembled
-#   dY = d0 + U z          (W, n_obs, nb)
-#   C  = D + U diag(v) U^T (W, n_obs, nb, nb)
-# in XLA and then called the kernel above — materializing the (W, n_obs, nb, nb)
-# covariance tensor through HBM every sampler step. Here both assemblies happen
-# in VMEM as small MXU matmuls ((nb, k) x (k, lanes)) immediately before the
-# factorization, so per step the only HBM traffic is the operands themselves.
-#
-# Layout: grid over (observable, walker-lane-block). The Cholesky state is a
-# LIST of (nb, lanes) column arrays (all 2D, Mosaic-friendly — no (nb, nb,
-# lanes) reshapes), with the nb loops unrolled exactly like _mvn_kernel.
-# --------------------------------------------------------------------------------------
-
-
-def _fused_kernel(nb: int, dot_mode: str, u_ref, d_ref, z_ref, v_ref, out_ref):
-    # U carries d0 as its LAST column (the wrapper appends a ones-row to z and
-    # a zeros-row to v), so dY = U z includes the constant offset and the
-    # covariance assembly sees d0 * 0 — one operand fewer, everything 2D.
-    U = u_ref[0]            # (nb, k+1)
-    D = d_ref[0]            # (nb, nb)
-    z = z_ref[:]            # (k+1, lanes)
-    v = v_ref[:]            # (k+1, lanes)
-    f32 = jnp.float32
-
-    # Residual: dY = d0 + U z, (nb, lanes) on the MXU.
-    b = _mvn_dot(U, z, dot_mode)
-
-    # Covariance columns: cols[g][f, w] = D[f, g] + sum_k U[f,k] U[g,k] v[k,w].
-    cols = [
-        D[:, g : g + 1]
-        + _mvn_dot(U * U[g : g + 1, :], v, dot_mode)
-        for g in range(nb)
-    ]
-
-    lanes = z.shape[-1]
-    quad = jnp.zeros((1, lanes), f32)
-    half_logdet = jnp.zeros((1, lanes), f32)
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (nb, lanes), 0)
-
-    # Column-list Cholesky: identical math to _mvn_kernel's rank-1 downdates.
-    for j in range(nb):
-        pivot = cols[j][j : j + 1, :]                 # (1, lanes)
-        inv_p = jax.lax.rsqrt(pivot)
-        col = cols[j] * inv_p                         # (nb, lanes)
-        col = jnp.where(row_ids >= j, col, jnp.zeros_like(col))
-        y_j = b[j : j + 1, :] * inv_p
-        b = b - col * y_j
-        quad = quad + y_j * y_j
-        half_logdet = half_logdet + 0.5 * jnp.log(pivot)
-        for g in range(j + 1, nb):
-            cols[g] = cols[g] - col * col[g : g + 1, :]
-
-    # Output block is (1, 8, lanes) — 8 sublanes to satisfy the TPU tiling
-    # constraint; all 8 rows carry the same value, the wrapper reads row 0.
-    out_ref[0] = jnp.broadcast_to(-0.5 * quad - half_logdet, (8, lanes))
-
-
-def _fused_kernel_packed(
-    nb: int, m: int, wt: int, gc: int, dot_mode: str,
-    u_ref, d_ref, z_ref, v_ref, out_ref,
-):
-    """Lane-packed fused kernel: m observable blocks share one program.
-
-    The walker batch in the sampler is HALF the ensemble (50 at the production
-    100-walker config) while the f32 lane width is 128, so the plain kernel
-    runs the O(nb^3) Cholesky sweep at ~39% lane utilization. Here z/v arrive
-    as m tiled copies of a wt-walker segment (m*wt = 128) and each program
-    factorizes m different observable blocks side by side: segment j's lanes
-    carry block j's residual/covariance, selected per column with a lane-id
-    mask. Assembly matmul work is unchanged (same dots, fewer programs); the
-    elementwise Cholesky work per observable drops by m.
-
-    ``gc`` block-groups are processed per GRID STEP with the body unrolled:
-    the probe decomposition (scripts/probe_step.py BIQ_MVN_PROBE, measured
-    2026-08-19) showed per-grid-step overhead at ~58 of the 105 us/step
-    kernel cost (~300 grid steps/sampler-step), dwarfing the sweep (~7); the
-    multi-block unroll amortizes it gc-fold.
-
-    Assembly strategy (BIQ_MVN_ASSEMBLY): the gc=4 probe decomposition
-    (2026-08-19: kernel-only 141 us, noassembly 88, nosweep 139) put the
-    covariance assembly at ~53 us/step — per-column dots have M=nb (~12)
-    rows on the 128-row MXU, <10% utilization. "stacked" (default) stacks
-    ALL gc*m blocks of one grid step into ONE (gc*m*nb, k+1) x (k+1, 128)
-    dot per column g, lifting M to ~96-128 rows; the D add + lane-segment
-    selects are unchanged. "percol" reverts to per-(q,j) dots for A/B. Two
-    earlier "bigger matmul" shapes LOST (NOTES.md 2026-08-19): a
-    host-precomputed (nb^2,k+1) UU operand (HBM traffic) and an in-VMEM UU
-    concat into a (nb^2,k+1)x(k+1,128) dot (M=nb^2 but one block per dot);
-    stacking across blocks keeps the operands in VMEM AND fills MXU rows.
-    """
-    import os as _os
-
-    z = z_ref[:]            # (k+1, m*wt)
-    v = v_ref[:]
-    f32 = jnp.float32
-    lanes = z.shape[-1]
-    seg = jax.lax.broadcasted_iota(jnp.int32, (nb, lanes), 1) // wt
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (nb, lanes), 0)
-    # PROBE-ONLY cost decomposition (scripts/probe_step.py): "noassembly"
-    # replaces the covariance assembly with the constant D (keeps the sweep),
-    # "nosweep" replaces the factorization with a cheap reduction (keeps the
-    # assembly). Output is WRONG under either — never set outside probes.
-    probe = _os.environ.get("BIQ_MVN_PROBE", "")
-
-    assembly = "percol" if probe or gc * m <= 1 else _os.environ.get(
-        "BIQ_MVN_ASSEMBLY", "stacked1"
-    )
-    stacked = assembly in ("stacked", "stacked1")
-    if stacked:
-        Us = [u_ref[q, j] for q in range(gc) for j in range(m)]
-        # residual: one (gc*m*nb, k+1) x (k+1, 128) dot for every block
-        B_all = _mvn_dot(jnp.concatenate(Us, axis=0), z, dot_mode)
-        if assembly == "stacked1":
-            # ALL covariance columns of ALL blocks in ONE dot: rows ordered
-            # g-major so each (k+1,128) product slab below slices out as the
-            # same col_all[g] layout "stacked" produces with nb dots — the
-            # per-row math (K-order accumulation) is identical, so outputs
-            # match "stacked" bit-for-bit. Neutral under HIGHEST dots
-            # (issue count wasn't the bottleneck) but the DEFAULT since the
-            # bf16x3 adoption: v's hi/lo operand split happens once instead
-            # of nb times (production A/B 2026-08-20: 92/60 vs 94/63
-            # full/kernel-only us/step; BIQ_MVN_ASSEMBLY selects).
-            R = gc * m * nb
-            UU_rows = jnp.concatenate(
-                [Uu * Uu[g : g + 1, :] for g in range(nb) for Uu in Us], axis=0
-            )
-            C_big = _mvn_dot(UU_rows, v, dot_mode)
-            col_all = [C_big[g * R : (g + 1) * R, :] for g in range(nb)]
-        else:
-            # covariance column g of every block in one dot (rows U_i * U_i[g])
-            col_all = [
-                _mvn_dot(jnp.concatenate([Uu * Uu[g : g + 1, :] for Uu in Us], axis=0), v, dot_mode)
-                for g in range(nb)
-            ]
-
-    def _blk(arr, q, j):
-        i = q * m + j
-        return arr[i * nb : (i + 1) * nb, :]
-
-    for q in range(gc):
-        if stacked:
-            b = _blk(B_all, q, 0)
-            for j in range(1, m):
-                b = jnp.where(seg == j, _blk(B_all, q, j), b)
-            cols = []
-            for g in range(nb):
-                col = d_ref[q, 0][:, g : g + 1] + _blk(col_all[g], q, 0)
-                for j in range(1, m):
-                    col = jnp.where(
-                        seg == j, d_ref[q, j][:, g : g + 1] + _blk(col_all[g], q, j), col
-                    )
-                cols.append(col)
-            quad = jnp.zeros((1, lanes), f32)
-            half_logdet = jnp.zeros((1, lanes), f32)
-            for j in range(nb):
-                pivot = cols[j][j : j + 1, :]
-                inv_p = jax.lax.rsqrt(pivot)
-                col = cols[j] * inv_p
-                col = jnp.where(row_ids >= j, col, jnp.zeros_like(col))
-                y_j = b[j : j + 1, :] * inv_p
-                b = b - col * y_j
-                quad = quad + y_j * y_j
-                half_logdet = half_logdet + 0.5 * jnp.log(pivot)
-                for g in range(j + 1, nb):
-                    cols[g] = cols[g] - col * col[g : g + 1, :]
-            out_ref[q] = jnp.broadcast_to(-0.5 * quad - half_logdet, (8, lanes))
-            continue
-
-        b = _mvn_dot(u_ref[q, 0], z, dot_mode)
-        for j in range(1, m):
-            bj = _mvn_dot(u_ref[q, j], z, dot_mode)
-            b = jnp.where(seg == j, bj, b)
-        if probe == "noassembly":
-            # constant-D covariance with a token data dependence on v
-            dep = v[0:1, :] * 1e-30
-            cols = [
-                jnp.where(
-                    seg == 0, d_ref[q, 0][:, g : g + 1], d_ref[q, m - 1][:, g : g + 1]
-                )
-                + dep
-                for g in range(nb)
-            ]
-        else:
-            cols = []
-            for g in range(nb):
-                U0 = u_ref[q, 0]
-                col = d_ref[q, 0][:, g : g + 1] + _mvn_dot(U0 * U0[g : g + 1, :], v, dot_mode)
-                for j in range(1, m):
-                    Uj = u_ref[q, j]
-                    cj = d_ref[q, j][:, g : g + 1] + _mvn_dot(Uj * Uj[g : g + 1, :], v, dot_mode)
-                    col = jnp.where(seg == j, cj, col)
-                cols.append(col)
-
-        if probe == "nosweep":
-            acc = b[0:1, :]
-            for g in range(nb):
-                acc = acc + cols[g][g : g + 1, :]
-            out_ref[q] = jnp.broadcast_to(-0.5 * acc, (8, lanes))
-            continue
-
-        quad = jnp.zeros((1, lanes), f32)
-        half_logdet = jnp.zeros((1, lanes), f32)
-        for j in range(nb):
-            pivot = cols[j][j : j + 1, :]
-            inv_p = jax.lax.rsqrt(pivot)
-            col = cols[j] * inv_p
-            col = jnp.where(row_ids >= j, col, jnp.zeros_like(col))
-            y_j = b[j : j + 1, :] * inv_p
-            b = b - col * y_j
-            quad = quad + y_j * y_j
-            half_logdet = half_logdet + 0.5 * jnp.log(pivot)
-            for g in range(j + 1, nb):
-                cols[g] = cols[g] - col * col[g : g + 1, :]
-
-        out_ref[q] = jnp.broadcast_to(-0.5 * quad - half_logdet, (8, lanes))
-
-
-@functools.partial(jax.jit, static_argnames=("wt", "gc", "dot_mode", "interpret"))
-def _fused_packed_mvn_pallas(
-    Up, Dp, zT, vT, wt: int, gc: int = 1, dot_mode: str = "bf16x3",
-    interpret: bool = False,
-):
-    """(n_grp,m,nb,k+1),(n_grp,m,nb,nb),(k+1,128),(k+1,128) -> (n_grp, 8, 128).
-
-    ``gc`` consecutive block-groups run per grid step (n_grp must be a
-    multiple of gc; the caller pads observables to m*gc)."""
-    n_grp, m, nb, k1 = Up.shape
-    kernel = functools.partial(_fused_kernel_packed, nb, m, wt, gc, dot_mode)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_grp // gc,),
-        out_shape=jax.ShapeDtypeStruct((n_grp, 8, m * wt), Up.dtype),
-        in_specs=[
-            pl.BlockSpec((gc, m, nb, k1), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((gc, m, nb, nb), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((k1, m * wt), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((k1, m * wt), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((gc, 8, m * wt), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(Up, Dp, zT, vT)
-
-
-@functools.partial(jax.jit, static_argnames=("dot_mode", "interpret"))
-def _fused_block_mvn_pallas(Ue, D, zT, vT, dot_mode: str = "bf16x3", interpret: bool = False):
-    """(n_obs,nb,k+1),(n_obs,nb,nb),(k+1,Wp),(k+1,Wp) -> (n_obs, Wp)."""
-    n_obs, nb, k1 = Ue.shape
-    Wp = zT.shape[-1]
-    lanes = 128
-    kernel = functools.partial(_fused_kernel, nb, dot_mode)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_obs, Wp // lanes),
-        out_shape=jax.ShapeDtypeStruct((n_obs, 8, Wp), Ue.dtype),
-        in_specs=[
-            pl.BlockSpec((1, nb, k1), lambda b, w: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, nb, nb), lambda b, w: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((k1, lanes), lambda b, w: (0, w), memory_space=pltpu.VMEM),
-            pl.BlockSpec((k1, lanes), lambda b, w: (0, w), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 8, lanes), lambda b, w: (b, 0, w), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(Ue, D, zT, vT)
+        name="fused_block_mvn",
+    )(U, D, d0, z, v)
 
 
 def fused_block_mvn_loglike(
@@ -400,149 +142,28 @@ def fused_block_mvn_loglike(
     d0: jax.Array,
     z: jax.Array,
     v: jax.Array,
-    interpret: bool | None = None,
-    dot_mode: str | None = None,
+    interpret: bool = False,
 ) -> jax.Array:
-    """Block-likelihood from emulator PC predictions, fully fused on TPU.
+    """Block-likelihood from emulator PC predictions.
 
     Inputs: padded block tensors U (n_obs, nb, k), D (n_obs, nb, nb),
     d0 (n_obs, nb) — see mcmc/likelihood.build_likelihood — and per-walker PC
-    means/variances z, v (W, k). Returns (W,) log-likelihoods (summed over
-    observables); padded rows carry identity/zero blocks contributing 0,
-    exactly as in the composed path.
+    means/variances z, v (W, k). Returns (W,) log-likelihoods summed over
+    observables; padded rows carry identity/zero blocks contributing 0.
 
-    Off-TPU (or with interpret=None on a non-TPU lowering) falls back to the
-    composed XLA implementation — identical math, used as the parity oracle in
-    tests/test_ops.py.
-
-    ``dot_mode`` selects the in-kernel assembly-dot precision (see
-    ``_mvn_dot``); None reads ``BIQ_MVN_DOT`` (default ``bf16x3``, the
-    framework-wide HIGH matmul standard — adopted 2026-08-19 after the probe
-    put the HIGHEST passes at 43 of the 88 us/step kernel cost).
+    ``interpret=True`` runs the kernel in the Pallas interpreter (tests on a
+    host without a card); otherwise the lowering platform picks the kernel on
+    CUDA and the composed XLA path elsewhere.
     """
-    import os as _os
+    nb = U.shape[1]
+    if nb > MAX_KERNEL_NB:
+        return composed_block_mvn_loglike(U, D, d0, z, v)
 
-    if dot_mode is None:
-        dot_mode = _os.environ.get("BIQ_MVN_DOT", "bf16x3")
-    n_obs, nb, k = U.shape
-    W = z.shape[0]
+    def kernel(U, D, d0, z, v):
+        return jnp.sum(fused_block_mvn_kernel(U, D, d0, z, v, interpret=interpret), axis=0)
 
-    def composed(U, D, d0, z, v):
-        dY = d0 + jnp.einsum("bfk,wk->wbf", U, z)
-        C = D + jnp.einsum("bfk,wk,bgk->wbfg", U, v, U)
-        from bayesian_inference_tpu.ops.cholesky import tiny_mvn_loglike
-
-        return jnp.sum(tiny_mvn_loglike(dY, C), axis=-1)
-
-    def pallas_path(U, D, d0, z, v, *, interp=False):
-        import os as _os
-
-        # Fold d0 into U's last column (ones-row in z, zeros-row in v): the
-        # kernel then sees only (Ue, D, z', v') with everything 2D.
-        Ue = jnp.concatenate([U, d0[:, :, None]], axis=-1)
-        ones = jnp.ones((W, 1), z.dtype)
-        zeros = jnp.zeros((W, 1), v.dtype)
-        ze = jnp.concatenate([z, ones], axis=1)
-        ve = jnp.concatenate([v, zeros], axis=1)
-
-        # Lane-packed variant: narrow walker batches (the sampler evaluates
-        # HALF the ensemble, e.g. 50 of 100 walkers) pack m observable blocks
-        # onto the 128 lanes — m-fold less Cholesky sweep work per observable.
-        # BIQ_MVN_PACK=0 forces the plain one-block-per-program kernel (A/B).
-        if W <= 64 and _os.environ.get("BIQ_MVN_PACK", "1") != "0":
-            # segment width: smallest 128-divisor >= W (floor 16 caps the
-            # per-program unrolling at m=8)
-            wt = next(t for t in (16, 32, 64) if t >= W)
-            m = 128 // wt
-            pad_w = wt - W
-            if pad_w:
-                ze_p = jnp.concatenate([ze, jnp.zeros((pad_w, k + 1), z.dtype)], axis=0)
-                ve_p = jnp.concatenate([ve, jnp.zeros((pad_w, k + 1), v.dtype)], axis=0)
-            else:
-                ze_p, ve_p = ze, ve
-            zT = jnp.tile(ze_p.T, (1, m))     # (k+1, 128): m walker-segment copies
-            vT = jnp.tile(ve_p.T, (1, m))
-            # Grid-chunk factor: gc block-groups per grid step (amortizes the
-            # measured ~0.2 us/grid-step overhead); shrink it for small
-            # observable sets so padding never exceeds one grid step's worth.
-            gc = int(_os.environ.get("BIQ_MVN_GRID_CHUNK", "4"))
-            gc = max(1, min(gc, -(-n_obs // m)))
-            pad_b = (-n_obs) % (m * gc)
-            Ue_p, D_p = Ue, D
-            if pad_b:
-                # padded blocks: identity covariance, zero residual -> ll 0
-                Ue_p = jnp.concatenate(
-                    [Ue, jnp.zeros((pad_b, nb, k + 1), U.dtype)], axis=0
-                )
-                D_p = jnp.concatenate(
-                    [D, jnp.broadcast_to(jnp.eye(nb, dtype=D.dtype), (pad_b, nb, nb))], axis=0
-                )
-            n_grp = (n_obs + pad_b) // m
-            ll = _fused_packed_mvn_pallas(
-                Ue_p.reshape(n_grp, m, nb, k + 1),
-                D_p.reshape(n_grp, m, nb, nb),
-                zT, vT, wt=wt, gc=gc, dot_mode=dot_mode, interpret=interp,
-            )
-            per_obs = ll[:, 0, :].reshape(n_grp * m, wt)
-            return jnp.sum(per_obs[:, :W], axis=0)
-
-        pad = (-W) % 128
-        if pad:
-            ze = jnp.concatenate([ze, jnp.zeros((pad, k + 1), z.dtype)], axis=0)
-            ve = jnp.concatenate([ve, jnp.zeros((pad, k + 1), v.dtype)], axis=0)
-        ll = _fused_block_mvn_pallas(Ue, D, ze.T, ve.T, dot_mode=dot_mode, interpret=interp)
-        return jnp.sum(ll[:, 0, :W], axis=0)
-
-    if interpret is not None:
-        return pallas_path(U, D, d0, z, v, interp=interpret)
-    if nb > 48:
-        from bayesian_inference_tpu.ops.mvn import mvn_loglike_dense
-
-        dY = d0 + jnp.einsum("bfk,wk->wbf", U, z)
-        C = D + jnp.einsum("bfk,wk,bgk->wbfg", U, v, U)
-        return jnp.sum(mvn_loglike_dense(dY, C), axis=-1)
+    if interpret:
+        return kernel(U, D, d0, z, v)
     return jax.lax.platform_dependent(
-        U, D, d0, z, v, tpu=pallas_path, default=composed
+        U, D, d0, z, v, cuda=kernel, default=composed_block_mvn_loglike
     )
-
-
-def block_mvn_loglike(dY: jax.Array, C: jax.Array, interpret: bool | None = None) -> jax.Array:
-    """Fused MVN loglike for (..., nb) residuals and (..., nb, nb) covariances.
-
-    Flattens the leading batch dims onto the TPU lane dimension (padded lanes
-    are identity/zero and contribute 0), runs the fused kernel, and restores
-    the batch shape. ``interpret=None`` auto-selects interpreter mode off-TPU.
-    """
-    *lead, nb = dY.shape
-    if interpret is None:
-        if nb > 48:
-            # Very wide observable blocks: the single-program kernel's
-            # (nb, nb, batch) working set would outgrow VMEM.
-            from bayesian_inference_tpu.ops.mvn import mvn_loglike_dense
-
-            return mvn_loglike_dense(dY, C)
-        from bayesian_inference_tpu.ops.cholesky import tiny_mvn_loglike
-
-        # Select by LOWERING platform, not jax.default_backend(): the same
-        # traced function must lower on a cpu-backend jit even when the
-        # process default is TPU (e.g. scripts/parity_check.py --device runs
-        # the reference sampler's likelihood on the host).
-        return jax.lax.platform_dependent(
-            dY, C,
-            tpu=lambda d, c: block_mvn_loglike(d, c, interpret=False),
-            default=tiny_mvn_loglike,
-        )
-    batch = 1
-    for s in lead:
-        batch *= s
-    pad = (-batch) % 128
-
-    Cf = C.reshape(batch, nb, nb)
-    bf = dY.reshape(batch, nb)
-    if pad:
-        eye = jnp.broadcast_to(jnp.eye(nb, dtype=C.dtype), (pad, nb, nb))
-        Cf = jnp.concatenate([Cf, eye], axis=0)
-        bf = jnp.concatenate([bf, jnp.zeros((pad, nb), dY.dtype)], axis=0)
-
-    ll = _block_mvn_pallas(Cf.transpose(1, 2, 0), bf.T, interpret=interpret)
-    return ll[0, :batch].reshape(*lead)

@@ -1,13 +1,13 @@
 """Device-mesh sharding for multi-chip scaling.
 
 The reference's only parallelism is a multiprocessing pool over MCMC walkers
-(mcmc.py:72-91). The TPU-native equivalents (SURVEY.md section 2 parallelism
+(mcmc.py:72-91). The JAX equivalents (SURVEY.md section 2 parallelism
 checklist):
 
   - MCMC walkers shard along a 1-D "data" mesh axis: the ensemble state is
     small and replicated; the expensive batched likelihood is partitioned over
     walkers via sharding constraints, and XLA inserts the (tiny) all-gather of
-    per-walker log-probabilities over ICI.
+    per-walker log-probabilities between devices.
   - GP fit instances (PCs x restarts) shard the same way: embarrassingly
     parallel hyperparameter optimization across chips in one pjit launch.
 

@@ -5,11 +5,11 @@ outlier identification, and design-point annotation."""
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from typing import Iterable
 
-import attrs
 import matplotlib
 
 matplotlib.use("Agg")
@@ -33,7 +33,7 @@ MAX_CHUNK_SIZE = 30
 MAX_BINS_PER_OBSERVABLE_GRID = 8
 
 
-@attrs.frozen
+@dataclasses.dataclass(frozen=True)
 class ObservableGrouping:
     """How to group observable bins into pair-correlation grids (reference
     plot_input_data.py:53-147): one grid per observable, one per emulator

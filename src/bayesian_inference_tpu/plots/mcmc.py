@@ -81,8 +81,8 @@ def _plot_autocorrelation(chain: np.ndarray, plot_dir: str, mean_power=None) -> 
 
     With ``mean_power`` (the runner's on-device ACF spectrum, (power, nfft)),
     the curve comes from ONE host inverse transform instead of ~8 full
-    forward-FFT passes over every walker series — multi-second CPU-steal
-    exposure on a production 50k x 100 chain (VERDICT r4 next #7). Exact
+    forward-FFT passes over every walker series of a production 50k x 100
+    chain. Exact
     per-prefix fallback when the artifact predates the spectrum."""
     n_steps = chain.shape[0]
     lengths = np.unique(np.logspace(2, np.log10(n_steps), 8).astype(int))

@@ -1,59 +1,62 @@
-"""Analytic FLOP accounting for the bench's MFU reporting.
+"""Analytic FLOP accounting for the bench's utilization reporting.
 
 The reference publishes no FLOP counts (its hot loops are hidden inside
 sklearn/LAPACK/emcee — SURVEY.md §6); these counts are derived from this
 framework's own program structure so bench.py can report
 ``flops_per_step`` / ``tflops_achieved`` / ``mfu`` instead of wall-clock
-alone (VERDICT r3 weak #3).
+alone.
 
 Counting conventions (documented so the numbers are auditable):
 
 * one fused multiply-add = 2 FLOPs; matmul (m,k)x(k,n) = 2mkn.
-* Counts follow the ACTUAL compiled programs (shared-sqdiff GP predict,
-  bucketed fused MVN kernels, blocked matmul-only LML), not a textbook
-  formula: e.g. the MVN covariance assembly is counted at the padded bucket
-  widths the kernel really executes, and the Cholesky sweep at the kernel's
-  rank-1-downdate op count. Elementwise transcendentals (exp/log/rsqrt in
-  Matern and the sweep) are counted as 1 FLOP each — they run on the VPU,
-  so MXU-centric MFU is slightly UNDERstated, never overstated.
+* Counts follow the program structure (shared-sqdiff GP predict, bucketed
+  block MVN, blocked matmul-only LML), not a textbook formula: the MVN
+  covariance assembly is counted at the bucket widths (multiples of 8), and
+  the Cholesky sweep at the rank-1-downdate op count. The CUDA kernel pads
+  each bucket further, to a power of two (ops/pallas_mvn.kernel_tile); that
+  padding is not counted. Elementwise transcendentals (exp/log/rsqrt in
+  Matern and the sweep) are counted as 1 FLOP each.
 * All counts are per *likelihood evaluation of W proposals*; one sampler
   step evaluates two half-ensembles of W/2, i.e. exactly W proposals/step.
 
-Peak used for MFU: the chip's dense bf16 matmul peak (the conventional MFU
-denominator). This framework runs f32 operands at matmul precision "high"
-(3-pass bf16 — package __init__), so MXU-resident work could at best reach
-~1/3 of this peak; docs/PERFORMANCE.md carries that analysis.
+Peak used for MFU: the card's dense bf16 tensor-core peak (the conventional
+MFU denominator). This framework computes in float32, so the float32 and
+TF32 peaks beside it bound what it could reach.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any
 
-# Dense bf16 TFLOP/s per chip, by jax device_kind (public spec sheets).
-_PEAK_TFLOPS_BY_KIND = {
-    "TPU v5 lite": 197.0,   # v5e
-    "TPU v5e": 197.0,
-    "TPU v5": 459.0,        # v5p
-    "TPU v4": 275.0,
-    "TPU v6 lite": 918.0,   # v6e / Trillium
+# Dense peaks of one card, by jax device_kind: NVIDIA H100 SXM data sheet,
+# rates without sparsity. They assume the card's full 700 W power limit; a
+# card set below it cannot hold its top clock under load (bench.py records
+# the limit beside every number).
+_PEAKS_BY_KIND = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0,
+        "tf32_tflops": 495.0,
+        "fp32_tflops": 67.0,
+        "hbm_tbps": 3.35,
+    },
 }
 
 
-def device_peak_tflops(device=None) -> float:
-    """Dense bf16 peak of the bench device (BENCH_PEAK_TFLOPS overrides)."""
-    env = os.environ.get("BENCH_PEAK_TFLOPS")
-    if env:
-        return float(env)
+def device_peaks(device=None) -> dict[str, float]:
+    """Published peaks of the bench device; a device not in the table raises."""
     if device is None:
         import jax
 
         device = jax.devices()[0]
     kind = getattr(device, "device_kind", "")
-    for key, val in _PEAK_TFLOPS_BY_KIND.items():
-        if kind.startswith(key):
-            return val
-    return 197.0  # v5e default (the BASELINE.json target hardware)
+    if kind not in _PEAKS_BY_KIND:
+        raise KeyError(f"no published peaks for device_kind {kind!r}")
+    return dict(_PEAKS_BY_KIND[kind])
+
+
+def device_peak_tflops(device=None) -> float:
+    """Dense bf16 peak of the bench device."""
+    return device_peaks(device)["bf16_tflops"]
 
 
 def _shape(x) -> tuple:
@@ -72,11 +75,10 @@ def mcmc_step_flops(like: Any, n_walkers: int) -> float:
       (d sub/mul/add per sqdiff dim + ~8 for the Matern polynomial*exp),
       posterior mean ks@alpha 2kN, variance ks@Kinv 2kN^2 + row-dot 2kN.
       The k_total x W x N^2 variance einsum dominates the whole step.
-    * Fused MVN blocks (ops/pallas_mvn), per padded bucket (n_obs, nb, k1)
-      with k1 = k_total + 1 (the folded d0 column): residual 2*nb*k1,
-      covariance assembly 2*nb^2*k1 (identical count for percol and bigdot),
-      Cholesky sweep ~nb^3 (rank-1 downdates: sum_j 2*(nb-j)*nb) + forward
-      solve/logdet ~4*nb^2.
+    * Block MVN (ops/pallas_mvn), per bucket (n_obs, nb, k) with
+      k1 = k_total + 1 (the d0 offset counted as one more column): residual
+      2*nb*k1, covariance assembly 2*nb^2*k1, Cholesky sweep ~nb^3 (rank-1
+      downdates: sum_j 2*(nb-j)*nb) + forward solve/logdet ~4*nb^2.
     """
     W = float(n_walkers)
     total = 0.0
@@ -88,8 +90,8 @@ def mcmc_step_flops(like: Any, n_walkers: int) -> float:
         total += W * 2 * k * N                    # var row-dot
     if getattr(like, "mode", "block") == "lowrank":
         # Woodbury route (ops/mvn.woodbury_loglike): one k x k capacitance
-        # system per walker — M assembly ~k^2, r = G@z 2k^2, TWO tiny-MVN
-        # kernel calls (Cholesky sweep k^3 + 4k^2 solve each), plus the
+        # system per walker — M assembly ~k^2, r = G@z 2k^2, the Cholesky
+        # and solve (counted as two k^3 + 4k^2 sweeps), plus the
         # z-quadratics (~2k^2).
         k = _shape(like.wb.G)[0]
         total += W * (5 * k * k + 2 * (k**3 + 4 * k * k))

@@ -23,14 +23,17 @@ def setup_logging(level: int = logging.INFO) -> None:
 
 
 @contextmanager
-def stage_timer(name: str, logger: logging.Logger):
-    """Log wall-clock for a pipeline stage."""
+def stage_timer(name: str, logger: logging.Logger, record: dict[str, float] | None = None):
+    """Log wall-clock for a pipeline stage (and store it in ``record[name]``)."""
     t0 = time.perf_counter()
     logger.info(f"[{name}] starting...")
     try:
         yield
     finally:
-        logger.info(f"[{name}] done in {time.perf_counter() - t0:.2f}s")
+        elapsed = time.perf_counter() - t0
+        if record is not None:
+            record[name] = elapsed
+        logger.info(f"[{name}] done in {elapsed:.2f}s")
 
 
 def progress_iter(iterable, description: str, logger: logging.Logger | None = None, total: int | None = None):

@@ -1,7 +1,7 @@
 """Blocked Cholesky inverse + matmul-only LML: parity vs numpy and autodiff.
 
-These pin the TPU fit path (ops/blocked_cholesky + gp.log_marginal_likelihood
-_matmul): interpret=True runs the actual Pallas diagonal-block kernel.
+These pin the "matmul" fit implementation (ops/blocked_cholesky +
+gp.log_marginal_likelihood_matmul).
 """
 
 import jax
@@ -25,15 +25,12 @@ def _spd(B, N):
 @pytest.mark.parametrize("B,N", [(3, 64), (2, 200)])
 def test_blocked_chol_inv_matches_numpy(B, N):
     K = _spd(B, N)
-    invL, hld = blocked_chol_inv(jnp.asarray(K), interpret=True)  # real pallas kernel
+    invL, hld = blocked_chol_inv(jnp.asarray(K))
     L_ref = np.linalg.cholesky(K)
     np.testing.assert_allclose(np.asarray(invL), np.linalg.inv(L_ref), rtol=1e-9, atol=1e-10)
     np.testing.assert_allclose(
         np.asarray(hld), np.log(np.diagonal(L_ref, axis1=-2, axis2=-1)).sum(-1), rtol=1e-10
     )
-    # platform-dispatch path (host fallback on CPU)
-    invL2, _ = blocked_chol_inv(jnp.asarray(K))
-    np.testing.assert_allclose(np.asarray(invL2), np.linalg.inv(L_ref), rtol=1e-9, atol=1e-10)
 
 
 def test_chol_inv_batched_collapses_nested_vmaps():

@@ -300,15 +300,18 @@ def test_batched_closure_checkpoint_double_interrupt(closure_setup, monkeypatch)
     with pytest.raises(RuntimeError, match="aborted by"):
         run_closure_batch(base_cfg, indices, **kw)
     monkeypatch.delenv("BIQ_CLOSURE_ABORT_AFTER_CHUNKS")
-    import h5py
+    from bayesian_inference_tpu.io import hdf5
 
     cfg_0 = MCMCConfig(
         analysis_name=analysis_name, parameterization=param,
         analysis_config=analysis_config, config_file=str(config_path),
         closure_index=indices[0],
     )
-    with h5py.File(Path(cfg_0.mcmc_output_dir) / "mcmc.h5", "a") as f:
-        f["chain"].resize(5, axis=0)  # torn write: shorter than checkpoint
+    # torn write: chain shorter than the checkpoint
+    hdf5.append_time_series(
+        cfg_0.mcmc_output_dir, "mcmc.h5",
+        {"chain": np.zeros((0, *full[indices[0]]["chain"].shape[1:]))}, truncate_to=5,
+    )
     with pytest.raises(RuntimeError, match="inconsistent"):
         run_closure_batch(base_cfg, indices, **kw)
 
@@ -371,7 +374,7 @@ def test_batched_closure_bounded_dispatch_window(closure_setup, monkeypatch):
     """Above the HBM budget, run_closure_batch dispatches a bounded window of
     chunks (freeing each slab after its per-point write) instead of pinning
     the whole batch on device. The dispatch ORDER and RNG path are unchanged,
-    so results must be bit-identical to dispatch-all (VERDICT r3 weak #4)."""
+    so results must be bit-identical to dispatch-all."""
     from bayesian_inference_tpu.mcmc.runner import run_closure_batch
 
     config_path, analysis_name, param, analysis_config = closure_setup

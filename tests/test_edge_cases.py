@@ -88,20 +88,27 @@ def test_wide_block_dispatch_matches_scipy():
     """nb > 48 routes to the XLA dense path and stays correct."""
     from scipy.linalg import cholesky, solve_triangular
 
-    from bayesian_inference_tpu.ops.pallas_mvn import block_mvn_loglike
+    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
 
     rng = np.random.default_rng(1)
-    W, B, nb = 3, 2, 60
-    A = rng.normal(size=(W, B, nb, nb))
-    C = A @ np.swapaxes(A, -1, -2) / nb + 2.0 * np.eye(nb)
-    dY = rng.normal(size=(W, B, nb))
-    ours = np.asarray(block_mvn_loglike(jnp.asarray(dY), jnp.asarray(C)))
+    W, B, nb, k = 3, 2, 60, 5
+    A = rng.normal(size=(B, nb, nb))
+    D = A @ np.swapaxes(A, -1, -2) / nb + 2.0 * np.eye(nb)
+    U = rng.normal(size=(B, nb, k)) / np.sqrt(k)
+    d0 = rng.normal(size=(B, nb))
+    z = rng.normal(size=(W, k))
+    v = rng.uniform(0.1, 1.0, size=(W, k))
+    ours = np.asarray(
+        fused_block_mvn_loglike(*(jnp.asarray(a) for a in (U, D, d0, z, v)))
+    )
     for w in range(W):
+        ref = 0.0
         for b in range(B):
-            L = cholesky(C[w, b], lower=True)
-            e = solve_triangular(L, dY[w, b], lower=True)
-            ref = -0.5 * e @ e - np.log(np.diag(L)).sum()
-            np.testing.assert_allclose(ours[w, b], ref, rtol=1e-9)
+            C = D[b] + (U[b] * v[w]) @ U[b].T
+            L = cholesky(C, lower=True)
+            e = solve_triangular(L, d0[b] + U[b] @ z[w], lower=True)
+            ref += -0.5 * e @ e - np.log(np.diag(L)).sum()
+        np.testing.assert_allclose(ours[w], ref, rtol=1e-9)
 
 
 def test_empty_filter_raises(test_data_dir):

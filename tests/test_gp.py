@@ -177,7 +177,7 @@ def test_lml_matmul_precision_argument_threads_through_vjp():
     n_low_hi = low.count("Precision.HIGHEST")
     assert n_plain_hi > 0 and n_low_hi < n_plain_hi
     assert low.count("Precision.HIGH,") > plain.count("Precision.HIGH,")
-    # value parity on CPU (precision is a TPU lowering hint; same math here)
+    # value parity on CPU (precision is an accelerator lowering hint; same math here)
     v_hi, _ = vg(params, jax.lax.Precision.HIGHEST)
     v_lo, _ = vg(params, jax.lax.Precision.HIGH)
     np.testing.assert_allclose(float(v_lo), float(v_hi), rtol=1e-6)

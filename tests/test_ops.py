@@ -150,5 +150,18 @@ def test_flops_accounting_hand_count():
     )
     assert total_nh == 2 * 3 * 6 * per_iter + 2 * 3 * 1000
 
-    # v5e default peak
-    assert flops.device_peak_tflops(SimpleNamespace(device_kind="TPU v5 lite")) == 197.0
+    # H100 SXM peaks by device_kind
+    h100 = SimpleNamespace(device_kind="NVIDIA H100 80GB HBM3")
+    assert flops.device_peaks(h100) == {
+        "bf16_tflops": 989.0, "tf32_tflops": 495.0, "fp32_tflops": 67.0, "hbm_tbps": 3.35,
+    }
+    assert flops.device_peak_tflops(h100) == 989.0
+
+
+def test_device_peaks_unknown_kind_raises():
+    from types import SimpleNamespace
+
+    from bayesian_inference_tpu.utils import flops
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        flops.device_peaks(SimpleNamespace(device_kind="Some Other Accelerator"))

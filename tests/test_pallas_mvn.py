@@ -1,10 +1,19 @@
-"""Pallas block-MVN kernel: interpreter-mode parity vs scipy and the jnp path."""
+"""Fused block-MVN kernel (Pallas interpreter mode), its dispatch, and the
+unrolled/dense MVN routes: parity vs scipy."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from bayesian_inference_tpu.ops.cholesky import tiny_cholesky, tiny_mvn_loglike, tiny_solve_lower
-from bayesian_inference_tpu.ops.pallas_mvn import block_mvn_loglike
+from bayesian_inference_tpu.ops.mvn import build_woodbury, mvn_loglike_dense, woodbury_loglike
+from bayesian_inference_tpu.ops.pallas_mvn import (
+    MAX_KERNEL_NB,
+    composed_block_mvn_loglike,
+    fused_block_mvn_loglike,
+    kernel_tile,
+)
 
 rng = np.random.default_rng(3)
 
@@ -50,18 +59,36 @@ def test_tiny_mvn_loglike_matches_scipy():
     np.testing.assert_allclose(ours, _scipy_ref(dY, C), rtol=1e-9)
 
 
-def test_pallas_kernel_interpret_matches_scipy():
-    """Run the actual Pallas kernel in interpreter mode (CPU) and check parity,
-    including lane padding (batch not a multiple of 128)."""
-    dY, C = _random_blocks(5, 7, 21)  # batch 35 -> pads to 128
-    ours = np.asarray(block_mvn_loglike(jnp.asarray(dY), jnp.asarray(C), interpret=True))
-    np.testing.assert_allclose(ours, _scipy_ref(dY, C), rtol=1e-8)
+def test_woodbury_capacitance_matches_scipy():
+    """Lowrank route: the Woodbury capacitance solve reproduces the dense
+    (F, F) covariance loglike computed with scipy."""
+    from scipy.linalg import cho_factor, cho_solve
+
+    F, k, W = 23, 6, 5
+    A = rng.normal(size=(F, F))
+    D = A @ A.T / F + np.eye(F)
+    U = rng.normal(size=(F, k)) / np.sqrt(k)
+    d0 = rng.normal(size=F)
+    z = rng.normal(size=(W, k))
+    v = rng.uniform(0.1, 1.0, size=(W, k))
+    wn = build_woodbury(jnp.asarray(D), jnp.asarray(U), jnp.asarray(d0))
+    ours = np.asarray(woodbury_loglike(wn, jnp.asarray(z), jnp.asarray(v)))
+    ref = []
+    for w in range(W):
+        C = D + (U * v[w]) @ U.T
+        dY = d0 + U @ z[w]
+        c = cho_factor(C, lower=True)
+        ref.append(-0.5 * dY @ cho_solve(c, dY) - np.log(np.diag(c[0])).sum())
+    np.testing.assert_allclose(ours, ref, rtol=1e-9)
 
 
-def test_block_mvn_dispatch_cpu_path():
-    dY, C = _random_blocks(2, 3, 8)
-    auto = np.asarray(block_mvn_loglike(jnp.asarray(dY), jnp.asarray(C)))
-    np.testing.assert_allclose(auto, _scipy_ref(dY, C), rtol=1e-9)
+@pytest.mark.parametrize("nb", [8, 40])
+def test_mvn_loglike_dense_matches_scipy(nb):
+    """Both routes of mvn_loglike_dense: the unrolled factorization (n <= 32)
+    and XLA's batched Cholesky (wider blocks)."""
+    dY, C = _random_blocks(2, 3, nb)
+    out = np.asarray(mvn_loglike_dense(jnp.asarray(dY), jnp.asarray(C)))
+    np.testing.assert_allclose(out, _scipy_ref(dY, C), rtol=1e-9)
 
 
 def _random_fused(W, B, nb, k, seed=5):
@@ -81,77 +108,57 @@ def _fused_ref(U, D, d0, z, v):
     return _scipy_ref(dY, C).sum(axis=1)
 
 
-def test_fused_block_mvn_interpret_matches_scipy():
-    """Full fused kernel (assembly + Cholesky + loglike) in interpreter mode,
-    including walker-lane padding and the d0-as-extra-U-column folding."""
-    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
-
-    U, D, d0, z, v = _random_fused(W=37, B=4, nb=11, k=9)  # 37 walkers -> pads to 128
-    ours = np.asarray(
-        fused_block_mvn_loglike(
-            *(jnp.asarray(a) for a in (U, D, d0, z, v)),
-            interpret=True, dot_mode="highest",
-        )
+def _kernel(args, dtype=None):
+    return np.asarray(
+        fused_block_mvn_loglike(*(jnp.asarray(a, dtype) for a in args), interpret=True)
     )
-    np.testing.assert_allclose(ours, _fused_ref(U, D, d0, z, v), rtol=1e-8)
+
+
+def test_fused_block_mvn_interpret_matches_scipy():
+    """Fused kernel (assembly + Cholesky + loglike) in interpreter mode,
+    including a non-power-of-two block width (nb=11 runs padded to 16) and a
+    partial walker tile (37 walkers)."""
+    args = _random_fused(W=37, B=4, nb=11, k=9)
+    np.testing.assert_allclose(_kernel(args), _fused_ref(*args), rtol=1e-8)
 
 
 def test_fused_block_mvn_vmap_over_d0():
     """The closure-test batch vmaps the likelihood over per-point residual
     offsets; the pallas batching rule must handle a mapped d0 with broadcast
-    U/D (interpret mode exercises the same rule the TPU path uses)."""
-    import jax
-
-    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
-
+    U/D (interpret mode exercises the same rule the CUDA path uses)."""
     U, D, d0, z, v = _random_fused(W=5, B=3, nb=9, k=7)
     P = 4
     d0_batch = np.stack([d0 * (1 + 0.1 * p) for p in range(P)])
     out = jax.vmap(
         lambda d: fused_block_mvn_loglike(
             jnp.asarray(U), jnp.asarray(D), d, jnp.asarray(z), jnp.asarray(v),
-            interpret=True, dot_mode="highest",
+            interpret=True,
         )
     )(jnp.asarray(d0_batch))
     ref = np.stack([_fused_ref(U, D, d0_batch[p], z, v) for p in range(P)])
     np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-8)
 
 
-def test_fused_packed_mvn_interpret_matches_scipy():
-    """Lane-packed fused kernel (m observable blocks per program): parity in
-    interpreter mode at the production half-ensemble width (W=50 -> wt=64,
-    m=2) including an odd block count (observable padding)."""
-    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
-
-    U, D, d0, z, v = _random_fused(W=50, B=5, nb=11, k=9)  # B=5 pads to 6 groups of 2
-    ours = np.asarray(
-        fused_block_mvn_loglike(
-            *(jnp.asarray(a) for a in (U, D, d0, z, v)),
-            interpret=True, dot_mode="highest",
-        )
-    )
-    np.testing.assert_allclose(ours, _fused_ref(U, D, d0, z, v), rtol=1e-8)
+def test_fused_block_mvn_interpret_production_widths():
+    """The production bucket widths at the half-ensemble walker count (W=50):
+    nb=24 pads to 32 with 4 walkers per program, i.e. 13 walker tiles, the
+    last one partial."""
+    args = _random_fused(W=50, B=3, nb=24, k=9)
+    assert kernel_tile(24, 50) == (32, 4)
+    np.testing.assert_allclose(_kernel(args), _fused_ref(*args), rtol=1e-8)
 
 
-def test_fused_packed_mvn_high_packing_factor():
-    """Small walker batches pack at m=8 (wt=16); exact segment-boundary width
-    (W=16 -> no walker padding) and W=13 (padding inside each segment)."""
-    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
-
-    for W in (16, 13):
-        U, D, d0, z, v = _random_fused(W=W, B=9, nb=7, k=6, seed=11 + W)
-        ours = np.asarray(
-            fused_block_mvn_loglike(
-                *(jnp.asarray(a) for a in (U, D, d0, z, v)),
-                interpret=True, dot_mode="highest",
-            )
-        )
-        np.testing.assert_allclose(ours, _fused_ref(U, D, d0, z, v), rtol=1e-8)
+@pytest.mark.parametrize("W,nb,tile", [(16, 7, (8, 16)), (13, 16, (16, 16)), (100, 8, (8, 64))])
+def test_fused_block_mvn_walker_tiles(W, nb, tile):
+    """Walker tiles: a tile wider than the batch (masked walkers), an exact
+    tile, and several tiles; the tile keeps walkers x nbp^2 at the register
+    budget."""
+    assert kernel_tile(nb, W) == tile
+    args = _random_fused(W=W, B=5, nb=nb, k=6, seed=11 + W)
+    np.testing.assert_allclose(_kernel(args), _fused_ref(*args), rtol=1e-8)
 
 
 def test_fused_block_mvn_dispatch_cpu_path():
-    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
-
     U, D, d0, z, v = _random_fused(W=6, B=3, nb=7, k=5)
     auto = np.asarray(
         fused_block_mvn_loglike(*(jnp.asarray(a) for a in (U, D, d0, z, v)))
@@ -159,21 +166,32 @@ def test_fused_block_mvn_dispatch_cpu_path():
     np.testing.assert_allclose(auto, _fused_ref(U, D, d0, z, v), rtol=1e-9)
 
 
-def test_fused_mvn_bf16x3_dot_mode_tolerance():
-    """The DEFAULT in-kernel dot mode is bf16x3 (the framework-wide HIGH
-    matmul standard, adopted 2026-08-19 — the 6-pass HIGHEST dots were 43 of
-    the 88 us/step production kernel cost). This pins its accuracy contract:
-    within 5e-6 relative of the f64 oracle on both the packed (W=50) and
-    plain (W=37 -> lane-padded) kernels, and well separated from the strict
-    1e-8 'highest' parity asserted above."""
-    from bayesian_inference_tpu.ops.pallas_mvn import fused_block_mvn_loglike
+def test_fused_block_mvn_float32_tolerance():
+    """The kernel's precision contract: float32 FMA arithmetic ("ieee", no
+    tensor-core pass) stays within 2e-5 relative of the float64 reference at
+    a production-like width."""
+    args = _random_fused(W=50, B=5, nb=16, k=41, seed=73)
+    out = _kernel(args, jnp.float32)
+    np.testing.assert_allclose(out, _fused_ref(*args), rtol=2e-5)
 
-    for W in (50, 37):
-        U, D, d0, z, v = _random_fused(W=W, B=5, nb=11, k=9, seed=23 + W)
-        ours = np.asarray(
-            fused_block_mvn_loglike(
-                *(jnp.asarray(a) for a in (U, D, d0, z, v)),
-                interpret=True, dot_mode="bf16x3",
-            )
-        )
-        np.testing.assert_allclose(ours, _fused_ref(U, D, d0, z, v), rtol=5e-6)
+
+@pytest.mark.parametrize("nb", [MAX_KERNEL_NB, MAX_KERNEL_NB + 8])
+def test_wide_blocks_take_dense_route_on_cuda(nb):
+    """Stated shape rule: blocks wider than MAX_KERNEL_NB lower to XLA's dense
+    factorization on CUDA too, never silently; narrower ones to the kernel."""
+    shapes = [(2, nb, 5), (2, nb, nb), (2, nb), (50, 5), (50, 5)]
+    args = [jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes]
+    with jax.enable_x64(False):
+        text = jax.jit(fused_block_mvn_loglike).trace(*args).lower(
+            lowering_platforms=("cuda",)
+        ).as_text()
+    assert ("__gpu$xla.gpu.triton" in text) == (nb <= MAX_KERNEL_NB)
+    U, D, d0, z, v = _random_fused(W=3, B=2, nb=nb, k=5)
+    out = np.asarray(fused_block_mvn_loglike(*(jnp.asarray(a) for a in (U, D, d0, z, v))))
+    np.testing.assert_allclose(out, _fused_ref(U, D, d0, z, v), rtol=1e-9)
+
+
+def test_composed_reference_matches_scipy():
+    args = _random_fused(W=4, B=3, nb=13, k=5, seed=2)
+    out = np.asarray(composed_block_mvn_loglike(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(out, _fused_ref(*args), rtol=1e-9)

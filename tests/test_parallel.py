@@ -27,7 +27,7 @@ def test_sharded_gp_fit_matches_unsharded(lml_impl):
         KernelConfig(nu=1.5, with_noise=True),
         param_min=np.zeros(d), param_max=np.ones(d),
         n_restarts=7, n_iters=10, alpha_jitter=1e-8,  # k*R = 16 instances over 8 devices
-        lml_impl=lml_impl,  # matmul: the pallas-bearing TPU fit path under a mesh
+        lml_impl=lml_impl,  # matmul: the blocked factorization under a mesh
     )
     posts_single = gp_fit.fit_gps(spec, X, Y, jax.random.key(0), mesh=None)
     posts_mesh = gp_fit.fit_gps(spec, X, Y, jax.random.key(0), mesh=get_mesh())

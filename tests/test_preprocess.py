@@ -54,7 +54,7 @@ def test_linear_interpolation_replaces_outlier():
     import shutil
     from pathlib import Path
     import tempfile
-    import h5py
+    from bayesian_inference_tpu.io import hdf5
     from bayesian_inference_tpu.pipeline.configs import PreprocessingConfig, load_yaml
 
     with tempfile.TemporaryDirectory() as td:
@@ -63,11 +63,13 @@ def test_linear_interpolation_replaces_outlier():
         run_dir = tmp_path / "output" / f"{analysis_name}_{param}"
 
         label = "2760__PbPb__hadron__pt_ch_atlas____0-5"  # 21 bins
-        with h5py.File(run_dir / "observables.h5", "r+") as f:
-            y = f["Prediction"][label]["y"][()]
-            orig = y[10, 7]
-            y[10, 7] = 50.0 * np.abs(y).max()  # interior spike at bin 10, design 7
-            f["Prediction"][label]["y"][...] = y
+        obs = hdf5.read_dict_from_h5(str(run_dir), "observables.h5", verbose=False)
+        y = obs["Prediction"][label]["y"]
+        orig = y[10, 7]
+        y[10, 7] = 50.0 * np.abs(y).max()  # interior spike at bin 10, design 7
+        hdf5.write_dict_to_h5(
+            {"Prediction": {label: {"y": y}}}, str(run_dir), "observables.h5", verbose=False
+        )
 
         cfg = PreprocessingConfig(
             analysis_name=analysis_name, parameterization=param,

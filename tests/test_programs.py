@@ -80,7 +80,7 @@ def test_aot_programs_under_mesh_match_unsharded(likelihood_setup, mode):  # noq
     """SamplerPrograms(mesh=...) — the path a real multi-chip run takes:
     executables lowered with replicated inputs + internal walker sharding on
     the 8-device virtual mesh must reproduce the single-device jit-closure
-    chain (VERDICT r4 weak #4: this path previously had zero CI coverage)."""
+    chain."""
     from bayesian_inference_tpu.parallel.mesh import get_mesh
 
     _, like, pspec = _built_likelihood(likelihood_setup, mode)
